@@ -1,0 +1,118 @@
+"""Diffusion-feature segmentation: feature extraction and the pixel
+classifier (port of ``tedm_tpu/models/segmentation.py``).
+
+Per timestep t in ``t_steps``, the image is q-sampled to x_t, the frozen
+UNet runs once, and its 4 up-stage attention outputs are the features
+(512@16², 256@32², 128@64², 64@128² at default widths). The S timesteps fold
+into the batch, step-major, so one UNet call serves them all. The classifier
+is the datasetDM 1x1-conv MLP [->128, ReLU, BN, ->32, ReLU, BN, ->1] whose
+layer 1 runs per stage at native resolution and is then nearest-upsampled and
+summed, which equals the conv over the upsampled concatenation and never
+builds that (B, S*960, 128, 128) tensor.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tedm_tpu_torch.models.diffusion import normalize_to_neg_one_to_one, q_sample
+from tedm_tpu_torch.models.unet import Unet
+from tedm_tpu_torch.ops.resize import nearest_resize
+from tedm_tpu_torch.ops.schedules import DiffusionSchedule
+
+
+def extract_features(
+    unet: Unet,
+    sched: DiffusionSchedule,
+    x_0: torch.Tensor,
+    t_steps: Sequence[int],
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[torch.Tensor] = None,
+    normalize: bool = True,
+) -> List[torch.Tensor]:
+    """Decoder features for every timestep in one batched UNet call.
+
+    x_0 (B, C, H, W) in [0, 1]; ``sched`` on x_0's device. Returns the 4
+    up-stage maps, each (S*B, c_s, h_s, w_s), step-major (step s occupies rows
+    [s*B, (s+1)*B)). RNG semantics of the reference
+    (models/datasetDM_model.py:67-83): ``noise`` (B, C, H, W) given -> the same
+    noise for every timestep; otherwise fresh noise per timestep drawn from
+    ``generator``.
+    """
+    b = x_0.shape[0]
+    s = len(t_steps)
+    if normalize:
+        x_0 = normalize_to_neg_one_to_one(x_0)
+    t_rep = torch.tensor(t_steps, dtype=torch.long, device=x_0.device).repeat_interleave(b)
+    x_rep = x_0.repeat(s, 1, 1, 1)
+    if noise is not None:
+        noise_rep = noise.to(x_0.device, x_0.dtype).repeat(s, 1, 1, 1)
+    else:
+        if generator is None:
+            raise ValueError("need generator or noise")
+        noise_rep = torch.randn(
+            x_rep.shape, generator=generator, device=x_0.device, dtype=x_0.dtype
+        )
+    x_t = q_sample(sched, x_rep, t_rep, noise_rep)
+    _, feats = unet(x_t, t_rep, extract_features=True)
+    return feats
+
+
+class PixelClassifier(nn.Sequential):
+    """The datasetDM head with the fused multi-scale layer 1.
+
+    An ``nn.Sequential`` laid out as the reference's (models/datasetDM_model.py:
+    57-64), so its ``state_dict`` keys are those
+    ``tedm_tpu/utils/torch_port.py:158-196`` reads: Conv, ReLU, BN, Conv,
+    ReLU, BN, Conv, behind a parameter-free stand-in for the Rearrange layer
+    that leads the shared-weights head (trainers/train_datasetDM.py:30-42).
+
+    ``shared=True``, ``n_steps=1`` with folded (S*B) input is the TEDM head
+    (127,489 parameters); ``n_steps=S`` with B-batch input is the LEDM/LEDMe
+    head (373,249 for S=3). Layer-1 input channels are ordered
+    [step-major x stage-major x channel] as the reference concatenates them.
+    """
+
+    def __init__(
+        self,
+        stage_channels: Sequence[int] = (512, 256, 128, 64),
+        n_steps: int = 1,
+        out_channels: int = 1,
+        img_size: int = 128,
+        shared: bool = False,
+    ):
+        c_in = sum(stage_channels) * n_steps
+        hidden = (128, 32)
+        layers = [
+            nn.Conv2d(c_in, hidden[0], 1), nn.ReLU(), nn.BatchNorm2d(hidden[0], eps=1e-5),
+            nn.Conv2d(hidden[0], hidden[1], 1), nn.ReLU(), nn.BatchNorm2d(hidden[1], eps=1e-5),
+            nn.Conv2d(hidden[1], out_channels, 1),
+        ]
+        super().__init__(*([nn.Identity()] if shared else []), *layers)
+        self.stage_channels = tuple(stage_channels)
+        self.n_steps = n_steps
+        self.img_size = img_size
+        self.offset = 1 if shared else 0
+
+    def forward(self, feats: List[torch.Tensor]) -> torch.Tensor:
+        """feats: the 4 stage maps, each (n_steps*B, c_s, h_s, w_s) -> logits
+        (B, out_channels, img_size, img_size). Eval mode: BN uses running stats."""
+        conv1, relu1, bn1, conv2, relu2, bn2, conv3 = list(self)[self.offset:]
+        w1 = conv1.weight  # (h1, c_in, 1, 1)
+        b = feats[0].shape[0] // self.n_steps
+        acc = None
+        off = 0
+        for s in range(self.n_steps):
+            for f, c in zip(feats, self.stage_channels):
+                f_s = f[s * b:(s + 1) * b]
+                y = F.conv2d(f_s, w1[:, off:off + c])
+                y = nearest_resize(y, self.img_size, self.img_size)
+                acc = y if acc is None else acc + y
+                off += c
+        x = bn1(relu1(acc + conv1.bias[None, :, None, None]))
+        x = bn2(relu2(conv2(x)))
+        return conv3(x)
