@@ -11,19 +11,19 @@ dispatcher (reference: train.py:23-48), as a frozen dataclass that is:
 
 * JSON-serializable (embedded beside every checkpoint);
 * diffable (``diff_configs`` reports changed/new/removed keys on checkpoint
-  load, like ``compare_configs`` — reference: trainers/utils.py:154-174).
-
-The command-line parser waits for the training slice of the port.
+  load, like ``compare_configs`` — reference: trainers/utils.py:154-174);
+* parsed from the same command line (``build_parser``, ``config_from_args``).
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
 from dataclasses import dataclass, field
 from datetime import datetime
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 EXPERIMENTS = (
     "img_only",       # DDPM backbone training (CXR14)  (reference: train.py:35-36)
@@ -322,3 +322,124 @@ def diff_configs(old, new, printer=print) -> Dict[str, Tuple[Any, Any]]:
             printer(f"{k} is removed - {v}")
             changed[k] = (v, MISSING)
     return changed
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The JAX package's argparse CLI, flag for flag and default for default
+    (reference: config.py:13-84). The port rejects at dispatch the flags of
+    features it does not have yet (``tedm_tpu_torch.train``)."""
+    p = argparse.ArgumentParser(description="tedm_tpu_torch experiment runner")
+    defaults = Config()
+    p.add_argument("--debug", action="store_true")
+    p.add_argument("--mixed_precision", action="store_true",
+                   help="bf16 compute on TPU (actually functional, unlike reference AMP)")
+    p.add_argument("--resume_path", type=str, default=None)
+    p.add_argument("--experiment", type=str, default=defaults.experiment,
+                   choices=list(EXPERIMENTS) + ["JSRT_baseline"])
+    p.add_argument("--dataset", type=str, default=defaults.dataset, choices=list(DATASETS))
+    p.add_argument("--img_size", type=int, default=defaults.img_size)
+    p.add_argument("--data_dir", type=str, default=None)
+    p.add_argument("--splits_dir", type=str, default=None,
+                   help="dir with the split CSVs (default: bundled reference CSVs)")
+    p.add_argument("--num_workers", type=int, default=defaults.num_workers)
+    p.add_argument("--dim", type=int, default=defaults.dim)
+    p.add_argument("--dim_mults", nargs="+", type=int, default=list(defaults.dim_mults))
+    p.add_argument("--timesteps", type=int, default=defaults.timesteps)
+    p.add_argument("--beta_schedule", type=str, default=defaults.beta_schedule,
+                   choices=["linear", "cosine"])
+    p.add_argument("--objective", type=str, default=defaults.objective,
+                   choices=["pred_noise", "pred_x_0"])
+    p.add_argument("--tau", type=float, default=defaults.tau)
+    p.add_argument("--global_model_path", type=str, default=None)
+    p.add_argument("--glob_loc_model_path", type=str, default=None)
+    p.add_argument("--unfreeze_weights_at_step", type=int,
+                   default=defaults.unfreeze_weights_at_step)
+    p.add_argument("--augment_at_finetuning", action="store_true")
+    p.add_argument("--batch_size", type=int, default=defaults.batch_size)
+    p.add_argument("--lr", type=float, default=defaults.lr)
+    p.add_argument("--weight_decay", type=float, default=defaults.weight_decay)
+    p.add_argument("--ema_decay", type=float, default=defaults.ema_decay,
+                   help="EMA decay for diffusion backbone params (0 "
+                        "disables). Measured A/B (RESULTS_parity.md): use "
+                        "0.9999 when total steps >> the averaging horizon "
+                        "1/(1-decay) — +2..+4 Dice x100 at 10k steps; "
+                        "HARMFUL at short budgets (-0.3..-0.7 at 400-2000 "
+                        "steps), leave off for short fine-tunes")
+    p.add_argument("--serve_raw_params", action="store_true",
+                   help="serve the raw (non-EMA) weights from an --ema_decay "
+                        "checkpoint in downstream loaders (EMA-vs-raw A/B)")
+    p.add_argument("--max_steps", type=int, default=defaults.max_steps)
+    p.add_argument("--p2_loss_weight_gamma", type=float, default=defaults.p2_loss_weight_gamma)
+    p.add_argument("--p2_loss_weight_k", type=float, default=defaults.p2_loss_weight_k)
+    p.add_argument("--seed", type=int, default=defaults.seed)
+    p.add_argument("--log_freq", type=int, default=defaults.log_freq)
+    p.add_argument("--val_freq", type=int, default=defaults.val_freq)
+    p.add_argument("--val_steps", type=int, default=defaults.val_steps)
+    p.add_argument("--log_dir", type=str, default=None)
+    p.add_argument("--n_sampled_imgs", type=int, default=defaults.n_sampled_imgs)
+    p.add_argument("--max_val_steps", type=int, default=defaults.max_val_steps)
+    p.add_argument("--ckpt_every", type=int, default=defaults.ckpt_every)
+    p.add_argument("--saved_diffusion_model", type=str, default=defaults.saved_diffusion_model)
+    p.add_argument("--t_steps_to_save", type=int, nargs="*",
+                   default=list(defaults.t_steps_to_save))
+    p.add_argument("--n_labelled_images", type=int, default=None,
+                   choices=list(N_LABELLED_CHOICES))
+    p.add_argument("--shared_weights_over_timesteps", action="store_true")
+    p.add_argument("--early_stop", action="store_true")
+    p.add_argument("--standardize_features", action="store_true")
+    p.add_argument("--extract_unnormalized", action="store_true",
+                   help="reference-parity: skip the [0,1]->[-1,1] normalize in "
+                        "feature extraction (the reference's datasetDM defect)")
+    p.add_argument("--mesh_shape", nargs="*", type=int, default=[])
+    p.add_argument("--mesh_axes", nargs="*", type=str, default=["data"])
+    p.add_argument("--param_sharding", type=str, default=defaults.param_sharding,
+                   choices=["replicated", "tp", "fsdp"])
+    p.add_argument("--tp_min_width", type=int, default=defaults.tp_min_width,
+                   help="TP: only shard kernels whose out-channel dim is >= this")
+    p.add_argument("--fsdp_min_size", type=int, default=defaults.fsdp_min_size,
+                   help="FSDP: only shard param leaves with >= this many elements")
+    p.add_argument("--shard_spatial", action="store_true",
+                   help="SP: shard the batch H axis over a 'spatial' mesh axis "
+                        "(e.g. --mesh_shape 2 4 --mesh_axes data spatial)")
+    p.add_argument("--no_pallas", action="store_true", help="disable Pallas kernels")
+    p.add_argument("--use_pallas_groupnorm", action="store_true",
+                   help="fused GroupNorm+FiLM+SiLU kernel (opt-in; re-measure per shape)")
+    p.add_argument("--use_pallas_resblock", action="store_true",
+                   help="fused whole-ResnetBlock Pallas kernel")
+    p.add_argument("--use_pallas_flash", action="store_true",
+                   help="flash-cosine Pallas kernel for the mid attention "
+                   "(opt-in; measured slower than XLA for img_size <= 512)")
+    p.add_argument("--attn_layout", type=str, default=defaults.attn_layout,
+                   choices=["heads_major", "nhwc"],
+                   help="linear-attention einsum layout (measured equal on v5e)")
+    p.add_argument("--synthetic_data", action="store_true")
+    p.add_argument("--data_backend", type=str, default=defaults.data_backend,
+                   choices=["threads", "grain", "device"],
+                   help="input pipeline backend (same batch contract)")
+    p.add_argument("--profile_dir", type=str, default=None)
+    p.add_argument("--multihost", action="store_true",
+                   help="multi-host: jax.distributed.initialize() at startup")
+    p.add_argument("--remat", action="store_true",
+                   help="block-level activation rematerialization (nn.remat "
+                        "per ResnetBlock/attention block; required to fit "
+                        "512^2+ training in HBM)")
+    p.add_argument("--ddim_steps", type=int, default=0,
+                   help="DDIM fast sampling steps (0 = full ancestral)")
+    p.add_argument("--grad_accum", type=int, default=defaults.grad_accum,
+                   help="accumulate gradients over N microbatches scanned "
+                        "inside the jitted train step (activation memory "
+                        "~1/N at the same global batch; composes with "
+                        "--remat and every sharding mode)")
+    return p
+
+
+def config_from_args(argv: Optional[Sequence[str]] = None) -> Config:
+    args = build_parser().parse_args(argv)
+    d = vars(args).copy()
+    d["use_pallas"] = not d.pop("no_pallas")
+    if d.get("log_dir") is None:
+        d["log_dir"] = _default_logdir()
+    for k in ("dim_mults", "t_steps_to_save", "mesh_shape", "mesh_axes"):
+        d[k] = tuple(d[k])
+    cfg = Config(**{k: v for k, v in d.items() if k in {f.name for f in dataclasses.fields(Config)}})
+    return cfg.apply_experiment_preset()

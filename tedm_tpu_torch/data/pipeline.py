@@ -1,0 +1,207 @@
+"""Batch loader: static shapes, seeded shuffling, prefetch, host sharding
+(port of ``Loader`` and ``build_dataloaders`` in ``tedm_tpu/data/pipeline.py``,
+the ``threads`` backend).
+
+* Every batch has the same shape and carries a ``valid`` mask (1.0 for real
+  rows, 0.0 for padding); losses and metrics are mask-aware.
+* The epoch permutation is ``RandomState(seed + epoch)``, the same on every
+  process, so the strided shards of a data-parallel run never overlap
+  (``shard_index``/``shard_count``).
+* Samples are made in ``num_workers`` threads while the device computes; a
+  bounded queue holds ready batches.
+
+Batches are NHWC numpy, as in the JAX package; the trainers move them to
+the device as NCHW tensors.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Dict, Iterator, Optional
+
+import numpy as np
+
+
+class Loader:
+    PREFETCH = 2  # ready batches the producer may hold
+
+    def __init__(
+        self,
+        dataset: Any,
+        batch_size: int,
+        shuffle: bool = False,
+        seed: int = 0,
+        drop_last: bool = False,
+        shard_index: int = 0,
+        shard_count: int = 1,
+        num_workers: int = 4,
+        subset: Optional[int] = None,
+    ):
+        self.dataset = dataset
+        self.has_labels = getattr(dataset, "has_labels", True)
+        n = len(dataset) if subset is None else min(subset, len(dataset))
+        self.indices = np.arange(n)  # a subset is the first n rows
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = drop_last
+        self.shard_index = shard_index
+        self.shard_count = shard_count
+        self.num_workers = max(1, num_workers)
+        self.epoch = 0
+
+        # shard-invariant batch size and batch count per epoch, so that
+        # every process of a data-parallel run steps in lockstep
+        max_shard = (n + shard_count - 1) // shard_count
+        min_shard = n // shard_count
+        self.batch_size = min(batch_size, max(1, max_shard))
+        if drop_last:
+            if min_shard == 0:
+                raise ValueError(
+                    f"drop_last=True with {n} items over {shard_count} shards "
+                    "leaves some process with an empty shard: every epoch would "
+                    "yield zero batches and repeat() would spin forever."
+                )
+            if min_shard < self.batch_size:
+                print(
+                    f"[pipeline] drop_last: clamping batch_size "
+                    f"{self.batch_size} -> {min_shard} (smallest shard)"
+                )
+                self.batch_size = min_shard
+            self._epoch_batches = min_shard // self.batch_size
+        else:
+            self._epoch_batches = (max_shard + self.batch_size - 1) // self.batch_size
+
+    def _shard_indices(self, epoch: int) -> np.ndarray:
+        idx = self.indices
+        if self.shuffle:
+            idx = np.random.RandomState(self.seed + epoch).permutation(idx)
+        return idx[self.shard_index :: self.shard_count]
+
+    def __len__(self) -> int:
+        return self._epoch_batches
+
+    def _make_batch(self, idxs: np.ndarray, pool: ThreadPoolExecutor) -> Dict[str, np.ndarray]:
+        bs = self.batch_size
+        valid = np.zeros((bs,), np.float32)
+        valid[: len(idxs)] = 1.0
+        items = list(pool.map(self.dataset.__getitem__, idxs))
+        # a shard that ran out before the epoch's batch count yields a batch
+        # of padding only, shaped like item 0
+        first = items[0] if items else self.dataset[0]
+        fields = list(zip(*items)) if self.has_labels else [items]
+        out = []
+        for f, like in enumerate(first if self.has_labels else (first,)):
+            arr = np.zeros((bs, *like.shape), np.float32)
+            if items:
+                arr[: len(items)] = np.stack(fields[f])
+            out.append(arr)
+        batch = {"image": out[0], "valid": valid}
+        if self.has_labels:
+            batch["mask"] = out[1]
+        return batch
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        idx = self._shard_indices(self.epoch)
+        self.epoch += 1
+        batches = [idx[i : i + self.batch_size] for i in range(0, len(idx), self.batch_size)]
+        if self.drop_last:
+            batches = [b for b in batches if len(b) == self.batch_size]
+        batches = batches[: self._epoch_batches]
+        while len(batches) < self._epoch_batches:
+            batches.append(np.array([], dtype=np.int64))
+
+        q: "queue.Queue" = queue.Queue(maxsize=self.PREFETCH)
+        stop = threading.Event()
+        DONE, ERROR = "__done__", "__error__"
+
+        def _put(item) -> bool:
+            """A bounded put that gives up once the consumer has gone (a
+            ``break`` in the consumer must not leave the producer blocked)."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                with ThreadPoolExecutor(self.num_workers) as pool:
+                    for b in batches:
+                        if not _put((None, self._make_batch(b, pool))):
+                            return
+                _put((DONE, None))
+            except BaseException as e:  # hand dataset errors to the consumer
+                _put((ERROR, e))
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                kind, item = q.get()
+                if kind == DONE:
+                    break
+                if kind == ERROR:
+                    raise item
+                yield item
+        finally:
+            stop.set()
+
+    def repeat(self) -> Iterator[Dict[str, np.ndarray]]:
+        """An endless stream of epochs (the reference's outer epoch loop,
+        trainers/train_baseline.py:24-96)."""
+        while True:
+            yield from self
+
+
+def build_dataloaders(
+    dataset: str,
+    data_dir: Optional[str],
+    img_size: int = 128,
+    batch_size: int = 16,
+    num_workers: int = 4,
+    n_labelled_images: Optional[int] = None,
+    seed: int = 0,
+    shard_index: int = 0,
+    shard_count: int = 1,
+    synthetic: bool = False,
+) -> Dict[str, Loader]:
+    """Train, val and test loaders of ``dataset`` (JSRT or CXR14) with the
+    JAX package's split sizes on the synthetic corpus (``synthetic``, or no
+    ``data_dir``). Train is shuffled and sharded; val and test are neither.
+    The JSRT train subset is its first ``n_labelled_images`` rows
+    (reference: dataloaders/JSRT.py:29-31)."""
+    from tedm_tpu_torch.data.datasets import SyntheticCXRDataset
+
+    if not (synthetic or data_dir is None):
+        raise NotImplementedError(
+            "the port reads the synthetic corpus only (--synthetic_data): the "
+            "JSRT and CXR14 image readers are ROADMAP item A.5"
+        )
+
+    def mk(ds, shuffle, shard, subset=None):
+        return Loader(
+            ds, batch_size, shuffle=shuffle, seed=seed,
+            shard_index=shard_index if shard else 0,
+            shard_count=shard_count if shard else 1,
+            num_workers=num_workers, subset=subset,
+        )
+
+    if dataset == "JSRT":
+        splits = {name: SyntheticCXRDataset(name, n, img_size, labelled=True, seed=seed)
+                  for name, n in (("train", 197), ("val", 25), ("test", 25))}
+        return {
+            "train": mk(splits["train"], True, True, subset=n_labelled_images),
+            "val": mk(splits["val"], False, False),
+            "test": mk(splits["test"], False, False),
+        }
+    if dataset == "CXR14":
+        # the reference's val and test read train_split.csv too
+        # (dataloaders/CXR14.py:30-32); the synthetic corpus mirrors that
+        corpus = SyntheticCXRDataset("cxr_train", 2048, img_size, labelled=False, seed=seed)
+        return {"train": mk(corpus, True, True), "val": mk(corpus, False, False),
+                "test": mk(corpus, False, False)}
+    raise ValueError(f"unknown dataset {dataset}")

@@ -1,17 +1,45 @@
-"""Forward diffusion (port of the serving part of ``tedm_tpu/models/diffusion.py``).
+"""The DDPM process over a UNet apply function (port of
+``tedm_tpu/models/diffusion.py``).
 
-Sampling and the training losses come with the training slice.
+Behaviour of the reference DiffusionModel (models/diffusion_model.py:50-301):
+epsilon prediction with an L1 loss and p2 reweighting, ancestral sampling
+with the clipped posterior log-variance and Imagen-style dynamic
+thresholding at the 0.995 quantile. Images are NCHW.
+
+Randomness is explicit: the losses and the samplers take their timesteps
+and noise as tensors, or draw them from a ``torch.Generator`` on the
+images' device. The JAX package draws from split PRNG keys instead; the two
+never agree, so the tests hand JAX's draws to the port.
+
+The JAX package runs the 1000-step reverse trajectory as one ``lax.scan``;
+here it is a Python loop of UNet calls under ``torch.no_grad``. DDIM and
+DPM-Solver++ sampling wait for a later slice.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
 from tedm_tpu_torch.ops.schedules import DiffusionSchedule, extract
 
+# An apply function: (x_t, t) -> model output (epsilon or x_0 prediction).
+ApplyFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
 
 def normalize_to_neg_one_to_one(x: torch.Tensor) -> torch.Tensor:
     return x * 2.0 - 1.0
+
+
+def unnormalize_to_zero_to_one(x: torch.Tensor) -> torch.Tensor:
+    return (x + 1.0) * 0.5
+
+
+def _randn(shape: Sequence[int], like: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+    if generator is None:
+        raise ValueError("need a generator or the noise itself")
+    return torch.randn(tuple(shape), generator=generator, device=like.device, dtype=like.dtype)
 
 
 def q_sample(
@@ -22,3 +50,242 @@ def q_sample(
     a = extract(sched.sqrt_alphas_cumprod, t, x_0.ndim)
     b = extract(sched.sqrt_one_minus_alphas_cumprod, t, x_0.ndim)
     return a * x_0 + b * noise
+
+
+def predict_x0_from_noise(sched: DiffusionSchedule, x_t, t, noise) -> torch.Tensor:
+    """(reference: models/diffusion_model.py:269-286)"""
+    return (
+        extract(sched.sqrt_recip_alphas_cumprod, t, x_t.ndim) * x_t
+        - extract(sched.sqrt_recipm1_alphas_cumprod, t, x_t.ndim) * noise
+    )
+
+
+def predict_noise_from_x0(sched: DiffusionSchedule, x_t, t, x_0) -> torch.Tensor:
+    """(reference: models/diffusion_model.py:288-301)"""
+    return (
+        extract(sched.sqrt_recip_alphas_cumprod, t, x_t.ndim) * x_t - x_0
+    ) / extract(sched.sqrt_recipm1_alphas_cumprod, t, x_t.ndim)
+
+
+def q_posterior(
+    sched: DiffusionSchedule, x_0: torch.Tensor, x_t: torch.Tensor, t: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Posterior q(x_{t-1} | x_t, x_0) mean and clipped log-variance
+    (reference: models/diffusion_model.py:259-267)."""
+    mean = (
+        extract(sched.posterior_mean_coef1, t, x_t.ndim) * x_0
+        + extract(sched.posterior_mean_coef2, t, x_t.ndim) * x_t
+    )
+    return mean, extract(sched.posterior_log_variance_clipped, t, x_t.ndim)
+
+
+def _quantile_via_topk(flat: torch.Tensor, percentile: float) -> torch.Tensor:
+    """Exact linear-interpolated ``percentile`` quantile of each row of
+    ``flat`` (B, n) from its top-k order statistics: for the high
+    percentiles of dynamic thresholding (0.995: the top 83 of 16384 pixels)
+    a top-k replaces the full sort of ``torch.quantile``."""
+    n = flat.shape[1]
+    pos = percentile * (n - 1)
+    i_lo = int(pos)
+    frac = pos - i_lo
+    k = n - i_lo  # elements from the top covering order stats i_lo, i_lo+1
+    top = torch.topk(flat, k, dim=1).values  # descending
+    v_lo = top[:, k - 1]
+    if frac == 0.0:
+        return v_lo
+    v_hi = top[:, k - 2] if k >= 2 else v_lo
+    return v_lo * (1.0 - frac) + v_hi * frac
+
+
+def dynamic_threshold(x_0: torch.Tensor, percentile: float) -> torch.Tensor:
+    """Imagen dynamic thresholding (reference: models/diffusion_model.py:224-231):
+    clip to the per-sample ``percentile`` quantile of |x_0| (floored at 1)
+    and rescale into [-1, 1]."""
+    flat = x_0.reshape(x_0.shape[0], -1).abs().float()
+    if percentile * (flat.shape[1] - 1) >= flat.shape[1] / 2:
+        s = _quantile_via_topk(flat, percentile)
+    else:
+        s = torch.quantile(flat, percentile, dim=1)
+    s = s.clamp(min=1.0).to(x_0.dtype).reshape(-1, *((1,) * (x_0.ndim - 1)))
+    return torch.clamp(x_0, -s, s) / s
+
+
+def model_predictions(
+    apply_fn: ApplyFn, sched: DiffusionSchedule, x_t, t, objective: str = "pred_noise"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(pred_noise, pred_x_0) (reference: models/diffusion_model.py:237-257,
+    with the objective consistently named 'pred_x_0')."""
+    out = apply_fn(x_t, t)
+    if objective == "pred_noise":
+        return out, predict_x0_from_noise(sched, x_t, t, out)
+    if objective == "pred_x_0":
+        return predict_noise_from_x0(sched, x_t, t, out), out
+    raise ValueError(f"unknown objective {objective}")
+
+
+def p_mean_variance(
+    apply_fn: ApplyFn,
+    sched: DiffusionSchedule,
+    x_t: torch.Tensor,
+    t: torch.Tensor,
+    objective: str = "pred_noise",
+    clip_denoised: bool = True,
+    dynamic_threshold_percentile: float = 0.995,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(reference: models/diffusion_model.py:221-235)"""
+    _, pred_x_0 = model_predictions(apply_fn, sched, x_t, t, objective)
+    if clip_denoised:
+        pred_x_0 = dynamic_threshold(pred_x_0, dynamic_threshold_percentile)
+    mean, log_var = q_posterior(sched, pred_x_0, x_t, t)
+    return mean, log_var, pred_x_0
+
+
+def sample_step(
+    apply_fn: ApplyFn,
+    sched: DiffusionSchedule,
+    x_t: torch.Tensor,
+    t: torch.Tensor,
+    noise: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    objective: str = "pred_noise",
+    dynamic_threshold_percentile: float = 0.995,
+) -> torch.Tensor:
+    """One ancestral reverse step x_t -> x_{t-1} (reference:
+    models/diffusion_model.py:205-219); t is (B,) and the noise is masked
+    off where t == 0."""
+    mean, log_var, _ = p_mean_variance(
+        apply_fn, sched, x_t, t, objective, True, dynamic_threshold_percentile
+    )
+    if noise is None:
+        noise = _randn(x_t.shape, x_t, generator)
+    nonzero = (t > 0).to(x_t.dtype).reshape(-1, *((1,) * (x_t.ndim - 1)))
+    return mean + torch.exp(0.5 * log_var) * noise * nonzero
+
+
+@torch.no_grad()
+def sample_loop_with_snapshots(
+    apply_fn: ApplyFn,
+    sched: DiffusionSchedule,
+    shape: Tuple[int, ...],
+    generator: torch.Generator,
+    n_snapshots: int = 8,
+    objective: str = "pred_noise",
+    dynamic_threshold_percentile: float = 0.995,
+    dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The full T-step reverse trajectory from x_T ~ N(0, 1), drawn with
+    every step's noise from ``generator`` (on the device to sample on).
+    Returns (x_0, snapshots (n_snapshots, *shape)); the snapshot of slot i
+    is the sample after the step at t = i * (T // n_snapshots), as the
+    reference keeps frames at t % stepsize == 0 (trainers/utils.py:88)."""
+    T = sched.num_timesteps
+    stepsize = max(T // n_snapshots, 1)
+    dev = generator.device
+    x = torch.randn(shape, generator=generator, device=dev, dtype=dtype)
+    snaps = torch.zeros((n_snapshots, *shape), device=dev, dtype=dtype)
+    for t_scalar in range(T - 1, -1, -1):
+        t = torch.full((shape[0],), t_scalar, dtype=torch.long, device=dev)
+        x = sample_step(apply_fn, sched, x, t, generator=generator, objective=objective,
+                        dynamic_threshold_percentile=dynamic_threshold_percentile)
+        if t_scalar % stepsize == 0:
+            snaps[min(t_scalar // stepsize, n_snapshots - 1)] = x
+    return x, snaps
+
+
+def sample_loop(
+    apply_fn: ApplyFn,
+    sched: DiffusionSchedule,
+    shape: Tuple[int, ...],
+    generator: torch.Generator,
+    objective: str = "pred_noise",
+    dynamic_threshold_percentile: float = 0.995,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """The final sample in [-1, 1] of the full T-step reverse trajectory."""
+    x, _ = sample_loop_with_snapshots(
+        apply_fn, sched, shape, generator, 1, objective, dynamic_threshold_percentile, dtype
+    )
+    return x
+
+
+def train_loss(
+    apply_fn: ApplyFn,
+    sched: DiffusionSchedule,
+    x_0: torch.Tensor,
+    t: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    objective: str = "pred_noise",
+    normalize: bool = True,
+    valid: Optional[torch.Tensor] = None,
+    aux_channel_losses: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """L1 epsilon-matching loss with p2 reweighting (reference:
+    models/diffusion_model.py:120-143). x_0 (B, C, H, W) is in [0, 1] when
+    ``normalize``. t (B,) defaults to uniform draws and noise to normal
+    draws from ``generator``. ``valid`` (B,) masks padding rows out of the
+    mean. ``aux_channel_losses`` also returns the per-channel (C,) split."""
+    n = x_0.shape[0]
+    if t is None:
+        if generator is None:
+            raise ValueError("need a generator or the timesteps themselves")
+        t = torch.randint(0, sched.num_timesteps, (n,), generator=generator, device=x_0.device)
+    if normalize:
+        x_0 = normalize_to_neg_one_to_one(x_0)
+    if noise is None:
+        noise = _randn(x_0.shape, x_0, generator)
+    out = apply_fn(q_sample(sched, x_0, t, noise), t)
+    target = noise if objective == "pred_noise" else x_0
+    err = (out.float() - target.float()).abs()
+    p2 = sched.p2_loss_weight[t]
+    row_w = torch.ones(n, device=x_0.device) if valid is None else valid.float()
+    denom = row_w.sum().clamp(min=1.0)
+    total = (err.reshape(n, -1).mean(dim=1) * p2 * row_w).sum() / denom
+    if not aux_channel_losses:
+        return total
+    per_ch = err.reshape(n, x_0.shape[1], -1).mean(dim=2) * p2[:, None]
+    return total, (per_ch * row_w[:, None]).sum(dim=0) / denom
+
+
+def val_loss(
+    apply_fn: ApplyFn,
+    sched: DiffusionSchedule,
+    x_0: torch.Tensor,
+    t_steps: int,
+    noise: Optional[Sequence[torch.Tensor]] = None,
+    generator: Optional[torch.Generator] = None,
+    objective: str = "pred_noise",
+    normalize: bool = True,
+    fold_batch: int = 8,
+    valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Mean loss over evenly spaced timesteps (reference:
+    models/diffusion_model.py:145-156), folded into the batch in chunks of
+    ``fold_batch`` timesteps, as the JAX package does: the last chunk is
+    padded with t = 0 rows that do not count. ``noise[c]`` (fold_batch*B,
+    C, H, W) is chunk c's noise; without it the noise comes from
+    ``generator``. ``valid`` (B,) masks padding rows."""
+    T = sched.num_timesteps
+    dev = x_0.device
+    t_values = torch.arange(0, T, max(T // t_steps, 1), device=dev)
+    S = t_values.shape[0]
+    pad = (-S) % fold_batch
+    t_chunks = torch.cat([t_values, t_values.new_zeros(pad)]).reshape(-1, fold_batch)
+    v_chunks = torch.cat([torch.ones(S, device=dev), torch.zeros(pad, device=dev)]).reshape(-1, fold_batch)
+    n = x_0.shape[0]
+    row_w = torch.ones(n, device=dev) if valid is None else valid.float()
+    row_denom = row_w.sum().clamp(min=1.0)
+    x_rep = (normalize_to_neg_one_to_one(x_0) if normalize else x_0).repeat(
+        fold_batch, *([1] * (x_0.ndim - 1))
+    )
+    total = torch.zeros((), device=dev)
+    for c in range(t_chunks.shape[0]):
+        t_rep = t_chunks[c].repeat_interleave(n)
+        nz = noise[c] if noise is not None else _randn(x_rep.shape, x_rep, generator)
+        out = apply_fn(q_sample(sched, x_rep, t_rep, nz), t_rep)
+        tgt = nz if objective == "pred_noise" else x_rep
+        l = (out.float() - tgt.float()).abs().reshape(fold_batch * n, -1).mean(dim=1)
+        l = l * sched.p2_loss_weight[t_rep]
+        per_t = (l.reshape(fold_batch, n) * row_w).sum(dim=1) / row_denom
+        total = total + (per_t * v_chunks[c]).sum()
+    return total / S

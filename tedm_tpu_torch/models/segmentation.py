@@ -41,7 +41,8 @@ def extract_features(
     [s*B, (s+1)*B)). RNG semantics of the reference
     (models/datasetDM_model.py:67-83): ``noise`` (B, C, H, W) given -> the same
     noise for every timestep; otherwise fresh noise per timestep drawn from
-    ``generator``.
+    ``generator``. ``noise`` of (S*B, C, H, W), step-major, gives each
+    timestep its own rows (the training draw of the JAX package).
     """
     b = x_0.shape[0]
     s = len(t_steps)
@@ -50,7 +51,8 @@ def extract_features(
     t_rep = torch.tensor(t_steps, dtype=torch.long, device=x_0.device).repeat_interleave(b)
     x_rep = x_0.repeat(s, 1, 1, 1)
     if noise is not None:
-        noise_rep = noise.to(x_0.device, x_0.dtype).repeat(s, 1, 1, 1)
+        noise = noise.to(x_0.device, x_0.dtype)
+        noise_rep = noise if noise.shape[0] == s * b else noise.repeat(s, 1, 1, 1)
     else:
         if generator is None:
             raise ValueError("need generator or noise")
@@ -100,7 +102,9 @@ class PixelClassifier(nn.Sequential):
 
     def forward(self, feats: List[torch.Tensor]) -> torch.Tensor:
         """feats: the 4 stage maps, each (n_steps*B, c_s, h_s, w_s) -> logits
-        (B, out_channels, img_size, img_size). Eval mode: BN uses running stats."""
+        (B, out_channels, img_size, img_size). BatchNorm as flax's
+        (``flax_batch_norm``): running statistics in eval mode, batch
+        statistics in train mode."""
         conv1, relu1, bn1, conv2, relu2, bn2, conv3 = list(self)[self.offset:]
         w1 = conv1.weight  # (h1, c_in, 1, 1)
         b = feats[0].shape[0] // self.n_steps
@@ -113,6 +117,28 @@ class PixelClassifier(nn.Sequential):
                 y = nearest_resize(y, self.img_size, self.img_size)
                 acc = y if acc is None else acc + y
                 off += c
-        x = bn1(relu1(acc + conv1.bias[None, :, None, None]))
-        x = bn2(relu2(conv2(x)))
+        x = flax_batch_norm(bn1, relu1(acc + conv1.bias[None, :, None, None]))
+        x = flax_batch_norm(bn2, relu2(conv2(x)))
         return conv3(x)
+
+
+def flax_batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """``bn`` applied as flax's ``nn.BatchNorm(momentum=0.9)`` applies it
+    (tedm_tpu/models/segmentation.py:136-145), keeping ``bn``'s parameters
+    and buffers. In eval mode it is ``bn`` itself. In train mode it
+    normalises by the batch mean and the biased variance E[x^2] - mean^2
+    (clamped at 0) over (B, H, W), every row counting, padding included, and
+    moves the running statistics by 0.1 of the way to them, the running
+    variance to the *biased* batch variance (``nn.BatchNorm2d`` takes the
+    unbiased one)."""
+    if not bn.training:
+        return bn(x)
+    xf = x.float()
+    mean = xf.mean(dim=(0, 2, 3))
+    var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(0.9).add_(0.1 * mean)
+        bn.running_var.mul_(0.9).add_(0.1 * var)
+        bn.num_batches_tracked += 1
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return ((xf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]).to(x.dtype)

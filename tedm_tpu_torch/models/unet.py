@@ -228,14 +228,18 @@ class Unet(nn.Module):
         dim_mults: Sequence[int] = (1, 2, 4, 8),
         channels: int = 1,
         resnet_block_groups: int = 8,
+        in_channels: Optional[int] = None,
     ):
+        """``channels`` is the width of the output (and by default of the
+        input); ``in_channels`` widens the input for the conditional modes,
+        whose input is the noised x concatenated with the condition."""
         super().__init__()
         dims = [dim] + [dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
         time_dim = dim * 4
         g = resnet_block_groups
 
-        self.init_conv = nn.Conv2d(channels, dim, 7, padding=3)
+        self.init_conv = nn.Conv2d(in_channels or channels, dim, 7, padding=3)
         self.time_mlp = TimeMLP(dim, time_dim)
 
         self.downs = nn.ModuleList()

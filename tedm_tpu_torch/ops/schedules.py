@@ -46,6 +46,10 @@ class DiffusionSchedule(NamedTuple):
     posterior_mean_coef2: torch.Tensor
     p2_loss_weight: torch.Tensor
 
+    @property
+    def num_timesteps(self) -> int:
+        return self.betas.shape[0]
+
     def to(self, device) -> "DiffusionSchedule":
         return DiffusionSchedule(*(t.to(device) for t in self))
 

@@ -1,13 +1,14 @@
-"""LEDM / LEDMe / TEDM: the frozen backbone and its feature classifier, in
-eval form (port of ``load_backbone`` and ``build_task`` in
-``tedm_tpu/trainers/datasetdm.py``; the training loop comes with the
-training slice).
+"""LEDM / LEDMe / TEDM: the frozen backbone and its feature classifier
+(port of ``tedm_tpu/trainers/datasetdm.py``).
 
 A frozen DDPM UNet provides decoder features at ``t_steps_to_save``; a
 1x1-conv MLP head classifies each pixel. TEDM
 (``shared_weights_over_timesteps``) folds the timesteps into the batch so
 one head sees every timestep (reference: trainers/train_datasetDM.py:30-42);
-its logits have ``fold`` = S times the batch, step-major.
+its logits have ``fold`` = S times the batch, step-major. ``main`` trains
+the head alone on the few labelled JSRT images (reference:
+trainers/train_datasetDM.py): the features come under ``torch.no_grad`` and
+only the head's parameters are in the optimizer (:46).
 """
 
 from __future__ import annotations
@@ -18,19 +19,14 @@ from typing import Optional, Tuple, Union
 import torch
 
 from tedm_tpu_torch.config import Config
+from tedm_tpu_torch.data.pipeline import build_dataloaders
 from tedm_tpu_torch.models.segmentation import PixelClassifier, extract_features
 from tedm_tpu_torch.models.unet import Unet
 from tedm_tpu_torch.ops.schedules import DiffusionSchedule, make_schedule
+from tedm_tpu_torch.trainers.common import init_seeded, train_segmentation
 from tedm_tpu_torch.utils.checkpoint import checkpoint_exists, load_checkpoint, load_config
 from tedm_tpu_torch.utils.device import resolve_device
-
-
-def _init_seeded(seed: int, build):
-    """Build modules with torch's default init from ``seed``, leaving the
-    caller's global RNG state as it was."""
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
-        return build()
+from tedm_tpu_torch.utils.logging import MetricsLogger
 
 
 def load_backbone(
@@ -51,7 +47,7 @@ def load_backbone(
         sched = make_schedule(old.timesteps, old.beta_schedule)
     else:
         print(f"No model found at {config.saved_diffusion_model}. Please load model!")
-        unet = _init_seeded(
+        unet = init_seeded(
             config.seed,
             lambda: Unet(dim=config.dim, dim_mults=tuple(config.dim_mults), channels=config.channels),
         )
@@ -78,8 +74,9 @@ class SegTask:
         noise: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """x (B, C, H, W) in [0, 1] -> logits (fold*B, out_channels, H, W).
-        Noise as in ``extract_features``: ``noise`` reused for every step,
-        else drawn from ``generator``. No gradient reaches the backbone."""
+        Noise as in ``extract_features``: ``noise`` (B or S*B rows), else
+        drawn from ``generator``. No gradient reaches the backbone; the head
+        runs in the mode it is in (``train()`` for a training step)."""
         with torch.no_grad():
             feats = extract_features(
                 self.unet, self.sched, x, self.t_steps,
@@ -89,13 +86,14 @@ class SegTask:
 
 
 def build_task(config: Config, device: Union[str, torch.device] = "cuda") -> SegTask:
-    """The backbone and a freshly initialised head (from ``config.seed``) for
-    a LEDM / LEDMe / TEDM config, in eval mode on ``device``."""
+    """The frozen backbone and a freshly initialised head (from
+    ``config.seed``) for a LEDM / LEDMe / TEDM config, in eval mode on
+    ``device``. The head's parameters take gradients."""
     dev = resolve_device(device)
     unet, sched = load_backbone(config, dev)
     t_steps = tuple(config.t_steps_to_save)
     shared = config.shared_weights_over_timesteps
-    clf = _init_seeded(
+    clf = init_seeded(
         config.seed + 1,
         lambda: PixelClassifier(
             stage_channels=tuple(config.dim * m for m in reversed(config.dim_mults)),
@@ -113,3 +111,17 @@ def build_task(config: Config, device: Union[str, torch.device] = "cuda") -> Seg
         normalize=config.normalize and not config.extract_unnormalized,
         fold=len(t_steps) if shared else 1,
     )
+
+
+def main(config: Config, device: Union[str, torch.device] = "cuda") -> None:
+    """Train a LEDM / LEDMe / TEDM head on JSRT (reference:
+    trainers/train_datasetDM.py); checkpoints under ``config.log_dir``."""
+    task = build_task(config, device)
+    loaders = build_dataloaders(
+        "JSRT", config.data_dir, config.img_size, config.batch_size,
+        config.num_workers, config.n_labelled_images, seed=config.seed,
+        synthetic=config.synthetic_data,
+    )
+    logger = MetricsLogger(config.log_dir, config, enabled=not config.debug)
+    train_segmentation(config, task, loaders, logger)
+    logger.close()

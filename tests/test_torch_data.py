@@ -1,0 +1,79 @@
+"""The port's synthetic corpus, batch loader and command line against the JAX
+package's, on the CPU: ``SyntheticCXRDataset`` samples bit-equal (easy and
+hard), the ``Loader``'s batches (order, padding, ``valid``) equal over two
+shuffled epochs, and ``config_from_args`` equal on a few argument lists."""
+
+import numpy as np
+import pytest
+
+from tedm_tpu.config import config_from_args as jax_config_from_args
+from tedm_tpu.data.datasets import SyntheticCXRDataset as JaxSynthetic
+from tedm_tpu.data.pipeline import Loader as JaxLoader
+from tedm_tpu.data.pipeline import build_dataloaders as jax_build_dataloaders
+from tedm_tpu_torch.config import config_from_args
+from tedm_tpu_torch.data.datasets import SyntheticCXRDataset
+from tedm_tpu_torch.data.pipeline import Loader, build_dataloaders
+
+
+@pytest.mark.parametrize("hard", [False, True])
+@pytest.mark.parametrize("labelled", [False, True])
+def test_synthetic_samples_bit_equal(hard, labelled):
+    args = ("train", 6, 32)
+    ours = SyntheticCXRDataset(*args, labelled=labelled, seed=3, hard=hard)
+    theirs = JaxSynthetic(*args, labelled=labelled, seed=3, hard=hard)
+    assert len(ours) == len(theirs) and ours.has_labels == labelled
+    for i in (0, 5):
+        a, b = ours[i], theirs[i]
+        for x, y in zip(a if labelled else (a,), b if labelled else (b,)):
+            assert x.dtype == y.dtype == np.float32 and x.shape[-1] == 1
+            np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(batch_size=4, shuffle=True, seed=1),                        # a padded last batch
+        dict(batch_size=4, shuffle=True, drop_last=True, subset=6),      # subset, dropped tail
+        dict(batch_size=8, shuffle=True, drop_last=True, subset=5),      # clamped to the shard
+        dict(batch_size=3, shuffle=True, shard_index=1, shard_count=3),  # a strided shard
+    ],
+)
+def test_loader_batches_equal_jax(kw):
+    ds = SyntheticCXRDataset("val", 10, 16, labelled=True, seed=0)
+    ours, theirs = Loader(ds, num_workers=2, **kw), JaxLoader(ds, num_workers=2, **kw)
+    assert (len(ours), ours.batch_size) == (len(theirs), theirs.batch_size)
+    for _ in range(2):  # two epochs: the permutation is RandomState(seed + epoch)
+        got, want = list(ours), list(theirs)
+        assert len(got) == len(want) == len(ours)
+        for a, b in zip(got, want):
+            assert sorted(a) == sorted(b) == ["image", "mask", "valid"]
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_build_dataloaders_matches_jax_and_refuses_real_data():
+    kw = dict(img_size=16, batch_size=4, num_workers=1, n_labelled_images=3, seed=2, synthetic=True)
+    ours, theirs = build_dataloaders("JSRT", None, **kw), jax_build_dataloaders("JSRT", None, **kw)
+    for split in ("train", "val", "test"):
+        assert (len(ours[split]), ours[split].batch_size) == (len(theirs[split]), theirs[split].batch_size)
+        np.testing.assert_array_equal(next(iter(ours[split]))["image"], next(iter(theirs[split]))["image"])
+    cxr = build_dataloaders("CXR14", None, img_size=16, batch_size=4, num_workers=1)
+    assert not cxr["train"].has_labels and len(cxr["val"]) == 512
+    with pytest.raises(NotImplementedError, match="A.5"):
+        build_dataloaders("JSRT", "/data/jsrt", img_size=16)
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [
+        [],
+        ["--experiment", "TEDM", "--n_labelled_images", "3", "--synthetic_data", "--lr", "3e-4"],
+        ["--experiment", "img_only", "--dim", "32", "--dim_mults", "1", "2", "4", "--ema_decay",
+         "0.999", "--grad_accum", "2", "--no_pallas", "--max_val_steps", "1"],
+        ["--experiment", "LEDM", "--t_steps_to_save", "5", "6", "--weight_decay", "0.01",
+         "--resume_path", "r/best", "--mesh_shape", "2", "4"],
+    ],
+)
+def test_config_from_args_equals_jax(argv):
+    argv = argv + ["--log_dir", "logs/x"]
+    assert config_from_args(argv).to_dict() == jax_config_from_args(argv).to_dict()
