@@ -7,12 +7,17 @@ toolkit:
     python3 chip_smoke.py
 
 Phases, each of which exits non-zero on failure:
-  1. environment: the card's name and power limit (nvidia-smi); TF32 off;
+  1. environment: the card's name and power limit (nvidia-smi); TF32 off,
+     and bf16 products summed in fp32 (no reduced-precision split-K);
   2. build: every CUDA source in tedm_tpu_torch/kernels/csrc, one nvcc per
      source, all started together;
   3. linear attention forward vs plain at the serving shapes, and the
      forward and backward vs plain at the training shapes and at edge
-     shapes, with device times (CUDA events);
+     shapes; the fused PreNorm linear-attention block (bf16) vs plain at
+     the serving and training shapes and at edges, on inputs where every
+     stage of the attention moves the output, with controls (the plain
+     version with a stage altered) that must read above the tolerance;
+     device times (CUDA events) beside each kernel's bound;
   4. serving path: a full-width TEDM model (random weights from a seed)
      saved with the port's save_checkpoint and served through Predictor for
      4 requests; launches per request; one request traced with
@@ -27,7 +32,17 @@ Phases, each of which exits non-zero on failure:
   7. training path (b): the TEDM head trained on path (a)'s backbone through
      the same entry point, its val Dice, then one request served from its
      best checkpoint by Predictor;
-  8. one JSON line listing every kernel, then the final JSON status line.
+  8. bf16 serving path: phase 4's weights under a ``mixed_precision``
+     config, as phase 4 (8 fused-block launches a request, no
+     linear-attention launch), and the bf16-vs-fp32 difference reported;
+  9. bf16 training path (a): ``--mixed_precision`` backbone steps at batch
+     16 through train.main (8 fused-block launches a step, none of the
+     linear-attention kernels), without validation (its sample grid);
+ 10. a bf16 training step profiled at batch 16, then one at batch 2 on the
+     card and on the CPU plain path;
+ 11. bf16 training path (b): a ``--mixed_precision`` TEDM head on phase
+     9's backbone, then one request served from its best checkpoint;
+ 12. one JSON line listing every kernel, then the final JSON status line.
 """
 
 from __future__ import annotations
@@ -58,8 +73,20 @@ STEP_LOSS_TOL = 1e-4           # card vs CPU training step, relative loss
 STEP_GRAD_TOL = 1e-3           # ... and gradients, relative to each tensor's largest entry
 SERVE_SHAPES = [(8, 4, 32, n) for n in (256, 1024, 4096, 16384)]   # 2 calls each per request
 TRAIN_SHAPES = [(16, 4, 32, n) for n in (256, 1024, 4096, 16384)]  # 2 calls each per step
-A_STEPS = 30                   # training steps of path (a)
-B_STEPS = 30                   # training steps of path (b)
+A_STEPS = 20                   # training steps of path (a)
+B_STEPS = 15                   # training steps of path (b)
+BLOCK_TOL = 5e-2               # bf16 forward tolerance (KERNELS.json), absolute
+# card vs CPU in bf16: both round every activation to bf16, but cuDNN and
+# the CPU's convolutions sum in other orders, and the fused kernel rounds
+# exp(k - max) at its chunk's max. Measured on an H100: 4.2e-4 to 4.4e-4 in
+# three runs, against probabilities that spread +-0.037 around 0.5; the
+# limit is 7x the reading and a tenth of that spread
+BF16_PATH_TOL = 3e-3
+# ... and a training step: the loss 1e-2 relative, each gradient 5e-2 of its
+# largest entry (bf16 rounding of the activations in the forward and the
+# backward, summed in other orders)
+BF16_STEP_LOSS_TOL = 1e-2
+BF16_STEP_GRAD_TOL = 5e-2
 
 
 def fail(msg: str) -> None:
@@ -107,6 +134,7 @@ class Phase:
 KERNEL_KINDS = (
     ("linear_attention forward kernel", ("context_partials", "combine_context", "apply_context")),
     ("linear_attention backward kernel", ("grad_partials", "combine_grad", "apply_grad")),
+    ("prenorm_linear_attention kernel", ("kv_partials", "::combine(", "apply_block")),
     ("convolution / gemm", ("conv", "cudnn", "xmma", "gemm", "fft", "dgrad", "wgrad",
                             "pointwise_mult_and_sum_complex")),
     ("optimizer / EMA (foreach)", ("multi_tensor", "foreach")),
@@ -129,7 +157,10 @@ def profile(label: str, fn) -> None:
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # device events, less user annotations (an optimizer step's range), whose
+    # time is that of the kernels inside them
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms <= 0:
         fail("the profiler saw no device time")
@@ -245,114 +276,264 @@ def check_backward(la, gen, scale):
     return rows
 
 
-def serve(la, tmp):
-    """Phase 4: the serving path. Returns its forward launches."""
+def block_shapes(batch: int) -> list:
+    """(B, C, N) of the default UNet's 8 fused blocks, in call order."""
+    from tedm_tpu_torch.kernels.bounds import unet_stages
+
+    return [(batch, c, side * side) for c, side in unet_stages()[0]]
+
+
+def block_inputs(gen, b, c, n, x=None):
+    """x (B, C, N) bf16 and the block's fp32 weights, scaled so that every
+    stage of the attention moves the output. At a conv's default init the
+    context is about N**-1.5 and the attention's share of the output falls
+    below one bf16 ulp. Here the v rows of W_qkv carry the factor N that the
+    context divides out, the k rows are doubled (k's softmax over N then
+    weighs some hundreds of columns, across chunks), W_out is 4x, so that
+    W_out attn is of the order of b_out and var(o) is 1e-2 or more, far
+    above the norm's eps. x at 0.5 and g_out at 0.5 keep |out| below 4,
+    where one bf16 ulp is 1.56e-2."""
+    r = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    if x is None:
+        x = (0.5 * r(b, c, n)).bfloat16()
+    w_qkv = r(3 * 128, c) * c ** -0.5
+    w_qkv[128:256] *= 2
+    w_qkv[256:] *= n
+    return (x, 1 + 0.1 * r(c), w_qkv, 4 * r(c, 128) * 128 ** -0.5, 0.1 * r(c), 0.5 * (1 + 0.1 * r(c)))
+
+
+def block_controls(args):
+    """The inputs with one stage altered, for the plain version: the context
+    zeroed (v rows of W_qkv 0), k's softmax over N made uniform (k rows 0),
+    and the q or the k rows of each head rotated by one. The kernel must
+    differ from each of these by more than BLOCK_TOL, or the check could not
+    see that stage. At N = 1 k's softmax is 1 and attn = scale v whatever q
+    is, so there only the context is held."""
+    x, g_in, w_qkv, w_out, b_out, g_out = args
+    rot = torch.cat([h * 32 + torch.roll(torch.arange(32), 1) for h in range(4)]).to(w_qkv.device)
+    alter = {"context 0": lambda w: w[256:].zero_(), "k uniform": lambda w: w[128:256].zero_(),
+             "q rotated": lambda w: w[:128].copy_(w[:128][rot]),
+             "k rotated": lambda w: w[128:256].copy_(w[128:256][rot])}
+    for what, fn in alter.items():
+        if x.shape[-1] > 1 or what == "context 0":
+            w = w_qkv.clone()
+            fn(w)
+            yield what, (x, g_in, w, w_out, b_out, g_out)
+
+
+def check_block(ab, gen):
+    """The fused block's kernel vs its plain version at the serving (batch 8)
+    and training (batch 16) shapes and at edges; per-shape rows with times."""
+    from tedm_tpu_torch.kernels.bounds import BF16_FLOPS_PER_S, bound
+
+    rows = {}
+    with torch.no_grad():
+        for shape in block_shapes(8) + block_shapes(16):
+            if shape in rows:  # the up and down paths share shapes
+                continue
+            b, c, n = shape
+            args = block_inputs(gen, b, c, n)
+            err, control = block_errors(ab, args, shape)
+            # x read and out written (bf16), the weights read (fp32); the qkv and
+            # to_out products and the two head-blocked attention contractions
+            # on the bf16 tensor cores
+            row = {
+                "shape": list(shape),
+                "max_abs_err": err,
+                "min_control_err": control,
+                "ms": device_ms(lambda: ab.prenorm_linear_attention(*args)),
+                "plain_ms": device_ms(lambda: ab.prenorm_linear_attention_reference(*args)),
+                **bound(2 * 2 * b * c * n + 4 * (4 * 128 * c + 3 * c),
+                        2 * b * n * 4 * 128 * c + 4 * b * 128 * 32 * n, BF16_FLOPS_PER_S),
+            }
+            rows[shape] = row
+            print(f"prenorm_linear_attention {shape}: max_abs_err {err:.3e} (tol {BLOCK_TOL}; controls "
+                  f">= {control:.3f}) kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms bound "
+                  f"{1e3 * row['bound_ms']:.2f} us ({row['bound_by']})", flush=True)
+            del args
+        wide = (0.5 * torch.randn(2, 3 * 64, 1000, generator=gen, device="cuda")).bfloat16()
+        edges = [(shape, block_inputs(gen, *shape)) for shape in
+                 [(1, 64, 1), (2, 64, 300), (1, 128, 513), (3, 256, 100), (1, 512, 17), (1, 64, 2 ** 16)]]
+        edges.append(("x with a batch stride of its own", block_inputs(gen, 2, 64, 1000, wide[:, 64:128])))
+        for what, args in edges:
+            err, control = block_errors(ab, args, what)
+            rows[what if isinstance(what, tuple) else (what,)] = {"max_abs_err": err, "min_control_err": control}
+    print("prenorm_linear_attention edge shapes and a strided x: within tolerance, max_abs_err "
+          f"{max(r['max_abs_err'] for r in rows.values()):.3e}; controls read "
+          f"{min(r['min_control_err'] for r in rows.values()):.3f} or more", flush=True)
+    return rows
+
+
+def block_errors(ab, args, what):
+    """The kernel's largest error against the plain version, and the least
+    of its differences from the plain version on each control's inputs."""
+    out = ab.prenorm_linear_attention(*args).float()
+    err = (out - ab.prenorm_linear_attention_reference(*args).float()).abs().max().item()
+    if not err <= BLOCK_TOL:
+        fail(f"prenorm_linear_attention kernel disagrees with its plain version at {what}: {err}")
+    controls = {}
+    for name, altered in block_controls(args):
+        controls[name] = (out - ab.prenorm_linear_attention_reference(*altered).float()).abs().max().item()
+        if not controls[name] > BLOCK_TOL:
+            fail(f"prenorm_linear_attention check at {what} cannot see its {name} control: {controls[name]}")
+    return err, min(controls.values())
+
+
+def calls_sum(rows, shapes) -> dict:
+    """Times and bound summed over calls of the given shapes, one a shape
+    as listed."""
+    return {key: sum(rows[s][key] for s in shapes) for key in ("ms", "plain_ms", "bound_ms")}
+
+
+def serve(la, ab, tmp, mixed: bool):
+    """Phases 4 and 8: the serving path. fp32: a TEDM model with random
+    weights from the seed, saved and served; bf16 (``mixed``): the same
+    weights under a config with ``mixed_precision``. Returns the launches of
+    the path's kernel: the linear-attention forward in fp32, the fused block
+    in bf16."""
     from tedm_tpu_torch.config import Config
     from tedm_tpu_torch.serve.app import Predictor
     from tedm_tpu_torch.trainers.datasetdm import build_task
-    from tedm_tpu_torch.utils.checkpoint import save_checkpoint
+    from tedm_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
-    cfg = Config(log_dir=os.path.join(tmp, "serve", "run")).replace(
-        experiment="TEDM", n_labelled_images=1, seed=SEED,
-        saved_diffusion_model=os.path.join(tmp, "no_backbone"),
-    ).apply_experiment_preset()
-    task = build_task(cfg, device="cuda")  # random weights from cfg.seed
-    logs = os.path.join(tmp, "serve", "logs")
-    save_checkpoint(
-        os.path.join(logs, "TEDM", "1", "best"),
-        {"backbone": task.unet.state_dict(), "classifier": task.classifier.state_dict()},
-        cfg,
-    )
-    del task
+    label = "bf16 " if mixed else ""
+    logs32 = os.path.join(tmp, "serve", "logs")
+    if mixed:
+        state, cfg = load_checkpoint(os.path.join(logs32, "TEDM", "1", "best"), verbose=False)
+        cfg = cfg.replace(mixed_precision=True)
+        logs = os.path.join(tmp, "serve_bf16", "logs")
+    else:
+        cfg = Config(log_dir=os.path.join(tmp, "serve", "run")).replace(
+            experiment="TEDM", n_labelled_images=1, seed=SEED,
+            saved_diffusion_model=os.path.join(tmp, "no_backbone"),
+        ).apply_experiment_preset()
+        task = build_task(cfg, device="cuda")  # random weights from cfg.seed
+        state = {"backbone": task.unet.state_dict(), "classifier": task.classifier.state_dict()}
+        del task
+        logs = logs32
+    save_checkpoint(os.path.join(logs, "TEDM", "1", "best"), state, cfg)
+    del state
     rs = np.random.RandomState(SEED)
     imgs = [rs.rand(1, cfg.img_size, cfg.img_size, 1).astype(np.float32) for _ in range(N_REQUESTS)]
     predictor = Predictor(logs_root=logs, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    la.linear_attention.launches = la.linear_attention.backward_launches = 0
+    kernel = "prenorm_linear_attention" if mixed else "linear_attention"
+    counter = getattr(ab if mixed else la, kernel)
+    reset_launches(la, ab)
     latencies, masks, launches = [], [], []
     for img in imgs:
-        before = la.linear_attention.launches
+        before = counter.launches
         t0 = time.perf_counter()
         masks.append(predictor.predict(img, "TEDM", 1))  # returns host numpy: synchronised
         latencies.append(1e3 * (time.perf_counter() - t0))
-        launches.append(la.linear_attention.launches - before)
-    fwd, bwd = la.linear_attention.launches, la.linear_attention.backward_launches
+        launches.append(counter.launches - before)
+    total = counter.launches
+    others = sum(read_launches(la, ab)) - total
     peak = torch.cuda.max_memory_allocated()
 
-    print(f"requests: {N_REQUESTS}; latency ms {[round(x, 3) for x in latencies]} "
+    print(f"{label}requests: {N_REQUESTS}; latency ms {[round(x, 3) for x in latencies]} "
           f"(the first includes loading the checkpoint); median of the rest "
-          f"{statistics.median(latencies[1:]):.3f} ms; "
-          f"linear_attention launches per request {launches}; "
-          f"peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)", flush=True)
-    if launches != [8] * N_REQUESTS or bwd != 0:
-        fail(f"expected 8 forward and no backward launches per request, got {launches} and {bwd}")
-    profile("one request", lambda: predictor.predict(imgs[0], "TEDM", 1))
+          f"{statistics.median(latencies[1:]):.3f} ms; {kernel} launches per request {launches}; "
+          f"launches of the other kernels {others}; peak device memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB)", flush=True)
+    if launches != [8] * N_REQUESTS or others != 0:
+        fail(f"expected 8 {kernel} launches per {label}request and no other kernel, got {launches} and {others}")
+    unet_dtype = next(iter(predictor._cache.values()))[1].unet.compute_dtype
+    if unet_dtype != (torch.bfloat16 if mixed else torch.float32):
+        fail(f"the {label}checkpoint was served in {unet_dtype}")
+    profile(f"one {label}request", lambda: predictor.predict(imgs[0], "TEDM", 1))
     for m in masks:
         if m.shape != (cfg.img_size, cfg.img_size) or not set(np.unique(m)) <= {0.0, 1.0}:
-            fail(f"mask of shape {m.shape} with values {np.unique(m)[:5]}")
+            fail(f"{label}mask of shape {m.shape} with values {np.unique(m)[:5]}")
 
     # the same weights, image and noise through the plain path on the CPU
     noise = rs.randn(1, cfg.img_size, cfg.img_size, 1).astype(np.float32)
-    probs_gpu = predictor._probabilities(imgs[0], "TEDM", 1, noise=noise)
+    probs = predictor._probabilities(imgs[0], "TEDM", 1, noise=noise)
     t0 = time.perf_counter()
     probs_cpu = Predictor(logs_root=logs, device="cpu")._probabilities(imgs[0], "TEDM", 1, noise=noise)
     cpu_s = time.perf_counter() - t0
-    if probs_gpu.shape != (1, cfg.img_size, cfg.img_size, 1) or not np.isfinite(probs_gpu).all():
-        fail(f"probabilities of shape {probs_gpu.shape}, finite: {np.isfinite(probs_gpu).all()}")
-    path_err = float(np.abs(probs_gpu - probs_cpu).max())
-    print(f"card vs CPU plain path: max_abs_err {path_err:.3e} (tol {PATH_TOL}); "
-          f"probabilities in [{probs_gpu.min():.4f}, {probs_gpu.max():.4f}]; "
+    if probs.shape != (1, cfg.img_size, cfg.img_size, 1) or not np.isfinite(probs).all():
+        fail(f"{label}probabilities of shape {probs.shape}, finite: {np.isfinite(probs).all()}")
+    path_err = float(np.abs(probs - probs_cpu).max())
+    tol = BF16_PATH_TOL if mixed else PATH_TOL
+    print(f"{label}card vs CPU plain path: max_abs_err {path_err:.3e} (tol {tol}); probabilities in "
+          f"[{probs.min():.4f}, {probs.max():.4f}], |p - 0.5| <= {np.abs(probs - 0.5).max():.4f}; "
           f"CPU request {cpu_s:.1f} s", flush=True)
-    if not path_err <= PATH_TOL:
-        fail(f"card and CPU plain path disagree: {path_err}")
-    return fwd
+    if mixed:
+        probs32 = Predictor(logs_root=logs32, device="cuda")._probabilities(imgs[0], "TEDM", 1, noise=noise)
+        print(f"bf16 vs fp32 from the same weights and noise (a report, not a gate): probabilities "
+              f"max_abs_diff {float(np.abs(probs - probs32).max()):.3e}, mean "
+              f"{float(np.abs(probs - probs32).mean()):.3e}; masks differ at "
+              f"{int(((probs > 0.5) != (probs32 > 0.5)).sum())} of {probs.size} pixels", flush=True)
+    if not path_err <= tol:
+        fail(f"{label}card and CPU plain path disagree: {path_err}")
+    return total
 
 
-def train_backbone(la, tmp):
-    """Phase 5: path (a) through the training entry point. Returns (best
-    checkpoint, forward launches, backward launches)."""
+def reset_launches(la, ab) -> None:
+    la.linear_attention.launches = la.linear_attention.backward_launches = 0
+    ab.prenorm_linear_attention.launches = 0
+
+
+def read_launches(la, ab) -> tuple:
+    """(linear-attention forward, its backward, fused block) launches."""
+    return (la.linear_attention.launches, la.linear_attention.backward_launches,
+            ab.prenorm_linear_attention.launches)
+
+
+def train_backbone(la, ab, tmp, mixed: bool):
+    """Phases 5 and 9: path (a) through the training entry point. fp32: with
+    one validation at the last step (its 1000-step sample grid); bf16
+    (``mixed``): without validation, a checkpoint at the last step. Returns
+    (checkpoint, launches of the linear-attention forward, of its backward,
+    of the fused block)."""
     from tedm_tpu_torch.config import config_from_args
     from tedm_tpu_torch.train import main as train_main
 
+    label = "bf16 path (a)" if mixed else "path (a)"
     argv = ["--experiment", "img_only", "--synthetic_data", "--ema_decay", "0.999",
-            "--max_steps", str(A_STEPS), "--val_freq", str(A_STEPS), "--log_freq", "1",
-            "--max_val_steps", "1", "--seed", str(SEED),
-            "--log_dir", os.path.join(tmp, "train", "run_a")]
+            "--max_steps", str(A_STEPS), "--log_freq", "1", "--seed", str(SEED),
+            "--log_dir", os.path.join(tmp, "train_bf16" if mixed else "train", "run_a")]
+    argv += (["--mixed_precision", "--val_freq", str(10 * A_STEPS), "--ckpt_every", str(A_STEPS)] if mixed
+             else ["--val_freq", str(A_STEPS), "--max_val_steps", "1"])
     cfg = config_from_args(argv)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    la.linear_attention.launches = la.linear_attention.backward_launches = 0
+    reset_launches(la, ab)
     t0 = time.perf_counter()
     train_main(argv, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    fwd, bwd = la.linear_attention.launches, la.linear_attention.backward_launches
+    fwd, bwd, fused = read_launches(la, ab)
     peak = torch.cuda.max_memory_allocated()
 
     recs = read_metrics(cfg.log_dir)
     steps = [r for r in recs if "train/loss" in r]
     val = [r["val/loss"] for r in recs if "val/loss" in r]
     step_ms = [1e3 * cfg.batch_size / r["train/imgs_per_sec"] for r in steps]
-    # validation: one batch of val_loss (chunks of 8 timesteps, one UNet call
-    # each) and the sample grid's T UNet calls, 8 linear attentions per call
+    # fp32 validation: one batch of val_loss (chunks of 8 timesteps, one UNet
+    # call each) and the sample grid's T UNet calls, 8 linear attentions per call
     n_t = len(range(0, cfg.timesteps, max(cfg.timesteps // cfg.val_steps, 1)))
-    val_fwd = 8 * (math.ceil(n_t / 8) + cfg.timesteps)
-    per_step = ((fwd - val_fwd) / len(steps), bwd / len(steps))
+    val_fwd = 0 if mixed else 8 * (math.ceil(n_t / 8) + cfg.timesteps)
+    per_step = tuple(x / max(len(steps), 1) for x in (fwd - val_fwd, bwd, fused))
     losses = [r["train/loss"] for r in steps]
-    print(f"path (a): {len(steps)} steps at batch {cfg.batch_size}, {cfg.img_size}^2, "
-          f"{wall:.1f} s wall with validation; step ms {[round(x, 1) for x in step_ms]}; "
+    print(f"{label}: {len(steps)} steps at batch {cfg.batch_size}, {cfg.img_size}^2, "
+          f"{wall:.1f} s wall{'' if mixed else ' with validation'}; step ms {[round(x, 1) for x in step_ms]}; "
           f"median of steps 2-{len(steps)} {statistics.median(step_ms[1:]):.3f} ms = "
           f"{1e3 * cfg.batch_size / statistics.median(step_ms[1:]):.2f} imgs/s; "
           f"losses {losses[0]:.4f} .. {losses[-1]:.4f}; val loss {val}; "
-          f"peak device memory {peak} bytes ({peak / 2**30:.3f} GiB, validation included); "
-          f"linear_attention launches: forward {fwd} ({val_fwd} in validation), "
-          f"backward {bwd}; per step {per_step}", flush=True)
-    if len(steps) != A_STEPS or not all(math.isfinite(x) for x in losses + val) or len(val) != 1:
-        fail(f"path (a): {len(steps)} steps, losses {losses}, val {val}")
-    if per_step != (8, 8):
-        fail(f"path (a): expected 8 forward and 8 backward launches per step, got {per_step}")
+          f"peak device memory {peak} bytes ({peak / 2**30:.3f} GiB"
+          f"{'' if mixed else ', validation included'}); launches: linear_attention forward {fwd} "
+          f"({val_fwd} in validation), backward {bwd}, prenorm_linear_attention {fused}; per step "
+          f"{per_step}", flush=True)
+    if len(steps) != A_STEPS or not all(math.isfinite(x) for x in losses + val) or len(val) != (0 if mixed else 1):
+        fail(f"{label}: {len(steps)} steps, losses {losses}, val {val}")
+    if per_step != ((0, 0, 8) if mixed else (8, 8, 0)):
+        fail(f"{label}: expected 8 launches a step of the path's kernels and none of the others, got {per_step}")
+    if mixed:
+        return os.path.join(cfg.log_dir, f"step_{A_STEPS}"), fwd, bwd, fused
     if not os.path.isfile(os.path.join(cfg.log_dir, "images", f"val_samples_{A_STEPS}.png")):
         fail("path (a) wrote no sample grid")
 
@@ -369,12 +550,13 @@ def train_backbone(la, tmp):
     batches.close()
     print(f"path (a) loader alone ({cfg.num_workers} threads): {1e3 * dt / 20:.3f} ms a batch of "
           f"{cfg.batch_size}, {20 * cfg.batch_size / dt:.1f} imgs/s", flush=True)
-    return os.path.join(cfg.log_dir, "best"), fwd, bwd
+    return os.path.join(cfg.log_dir, "best"), fwd, bwd, fused
 
 
-def step_card_vs_cpu():
-    """Phase 6: a training step at batch 16 under the profiler, then one at
-    batch 2 on the card and on the CPU from the same weights, t and noise."""
+def step_card_vs_cpu(mixed: bool):
+    """Phases 6 and 10: a training step at batch 16 under the profiler, then
+    one at batch 2 on the card and on the CPU from the same weights, t and
+    noise; in fp32, or in bf16 with ``mixed``."""
     from tedm_tpu_torch.config import config_from_args
     from tedm_tpu_torch.data.datasets import SyntheticCXRDataset
     from tedm_tpu_torch.ops.schedules import make_schedule
@@ -382,7 +564,9 @@ def step_card_vs_cpu():
     from tedm_tpu_torch.trainers.common import make_optimizer, to_nchw
 
     cfg = config_from_args(["--experiment", "img_only", "--synthetic_data", "--seed", str(SEED),
-                            "--log_dir", os.path.join(tempfile.gettempdir(), "unused")])
+                            "--log_dir", os.path.join(tempfile.gettempdir(), "unused")]
+                           + (["--mixed_precision"] if mixed else []))
+    label = "bf16 " if mixed else ""
     data = SyntheticCXRDataset("cxr_train", 16, cfg.img_size, labelled=False, seed=SEED)
     x = np.stack([data[i] for i in range(16)])
     gen = torch.Generator().manual_seed(SEED)
@@ -399,7 +583,8 @@ def step_card_vs_cpu():
     unet, steps, args = run("cuda", 16)
     for _ in range(3):
         steps.train_step(*args, t=t[:16].cuda(), noise=noise.cuda())
-    profile("one training step at batch 16", lambda: steps.train_step(*args, t=t.cuda(), noise=noise.cuda()))
+    profile(f"one {label}training step at batch 16",
+            lambda: steps.train_step(*args, t=t.cuda(), noise=noise.cuda()))
     del unet, steps, args
 
     results = {}
@@ -411,60 +596,60 @@ def step_card_vs_cpu():
     loss_err = abs(loss_g - loss_c) / abs(loss_c)
     grad_errs = {n: rel_err(grads_g[n], grads_c[n]) for n in grads_c}
     worst = max(grad_errs, key=grad_errs.get)
-    print(f"training step at batch 2, card vs CPU plain path: loss {loss_g:.6f} vs {loss_c:.6f} "
-          f"(relative {loss_err:.2e}, tol {STEP_LOSS_TOL}); gradients of {len(grad_errs)} tensors, "
-          f"worst relative to the tensor's largest entry {grad_errs[worst]:.2e} at {worst} "
-          f"(tol {STEP_GRAD_TOL}), median {statistics.median(grad_errs.values()):.2e}", flush=True)
-    if not (math.isfinite(loss_g) and loss_err <= STEP_LOSS_TOL and grad_errs[worst] <= STEP_GRAD_TOL):
-        fail("the training step on the card disagrees with the CPU plain path")
+    loss_tol, grad_tol = (BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL) if mixed else (STEP_LOSS_TOL, STEP_GRAD_TOL)
+    print(f"{label}training step at batch 2, card vs CPU plain path: loss {loss_g:.6f} vs {loss_c:.6f} "
+          f"(relative {loss_err:.2e}, tol {loss_tol}); gradients of {len(grad_errs)} tensors, worst "
+          f"relative to the tensor's largest entry {grad_errs[worst]:.2e} at {worst} (tol {grad_tol}), "
+          f"median {statistics.median(grad_errs.values()):.2e}", flush=True)
+    if not (math.isfinite(loss_g) and loss_err <= loss_tol and grad_errs[worst] <= grad_tol):
+        fail(f"the {label}training step on the card disagrees with the CPU plain path")
 
 
-def train_head(la, tmp, backbone):
-    """Phase 7: path (b) on path (a)'s backbone, then one request served
-    from its best checkpoint. Returns its forward launches."""
+def train_head(la, ab, tmp, backbone, mixed: bool):
+    """Phases 7 and 11: path (b) on a backbone of path (a), then one request
+    served from its best checkpoint; in fp32, or in bf16 with ``mixed``.
+    Returns the launches of its training run: of the linear-attention
+    forward in fp32, of the fused block in bf16."""
     from tedm_tpu_torch.config import config_from_args
     from tedm_tpu_torch.serve.app import Predictor
     from tedm_tpu_torch.train import main as train_main
 
-    logs = os.path.join(tmp, "train", "logs")
+    label = "bf16 path (b)" if mixed else "path (b)"
+    logs = os.path.join(tmp, "train_bf16" if mixed else "train", "logs")
     argv = ["--experiment", "TEDM", "--n_labelled_images", "1", "--synthetic_data",
             "--saved_diffusion_model", backbone, "--max_steps", str(B_STEPS),
             "--val_freq", str(B_STEPS), "--log_freq", "1", "--seed", str(SEED),
-            "--log_dir", os.path.join(logs, "run_b")]
+            "--log_dir", os.path.join(logs, "run_b")] + (["--mixed_precision"] if mixed else [])
     cfg = config_from_args(argv)
-    la.linear_attention.launches = la.linear_attention.backward_launches = 0
+    reset_launches(la, ab)
     t0 = time.perf_counter()
     train_main(argv, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    fwd, bwd = la.linear_attention.launches, la.linear_attention.backward_launches
+    fwd, bwd, fused = read_launches(la, ab)
 
     recs = read_metrics(cfg.log_dir)
     steps = [r for r in recs if "train/loss" in r]
     val = [r for r in recs if "val/dice" in r]
     step_ms = [1e3 * r["train/imgs_per_sec"] ** -1 for r in steps]
-    print(f"path (b): {len(steps)} steps of 1 image x 8 timesteps, {wall:.1f} s wall with "
+    print(f"{label}: {len(steps)} steps of 1 image x 8 timesteps, {wall:.1f} s wall with "
           f"validation; median step {statistics.median(step_ms[1:]):.3f} ms; losses "
           f"{steps[0]['train/loss']:.4f} .. {steps[-1]['train/loss']:.4f}; val {val}; "
-          f"linear_attention launches: forward {fwd}, backward {bwd}", flush=True)
+          f"linear_attention launches: forward {fwd}, backward {bwd}; prenorm_linear_attention "
+          f"launches {fused}", flush=True)
     # one UNet call of 8 timesteps per step and per val batch (25 images, 2 batches)
-    if len(steps) != B_STEPS or len(val) != 1 or fwd != 8 * (B_STEPS + 2) or bwd != 0:
-        fail(f"path (b): {len(steps)} steps, val {val}, launches {fwd} / {bwd}")
+    calls = 8 * (B_STEPS + 2)
+    if len(steps) != B_STEPS or len(val) != 1 or (fwd, bwd, fused) != ((0, 0, calls) if mixed else (calls, 0, 0)):
+        fail(f"{label}: {len(steps)} steps, val {val}, launches {fwd} / {bwd} / {fused}")
     if not all(math.isfinite(v) for v in val[0].values()):
-        fail(f"path (b): val metrics {val[0]}")
+        fail(f"{label}: val metrics {val[0]}")
 
     mask = Predictor(logs_root=logs, device="cuda").predict(
         np.random.RandomState(SEED).rand(1, cfg.img_size, cfg.img_size, 1).astype(np.float32), "TEDM", 1)
     if mask.shape != (cfg.img_size, cfg.img_size) or not set(np.unique(mask)) <= {0.0, 1.0}:
-        fail(f"path (b): served mask of shape {mask.shape}")
-    print(f"path (b): served one request from {cfg.log_dir}/best, mask foreground {mask.mean():.4f}")
-    return fwd
-
-
-def per_step_sum(rows, shapes) -> dict:
-    """Times and bounds of one request's or step's calls: each shape twice,
-    once on the way down and once on the way up."""
-    return {key: 2 * sum(rows[s][key] for s in shapes) for key in ("ms", "plain_ms", "bound_ms")}
+        fail(f"{label}: served mask of shape {mask.shape}")
+    print(f"{label}: served one request from {cfg.log_dir}/best, mask foreground {mask.mean():.4f}")
+    return fused if mixed else fwd
 
 
 def main() -> None:
@@ -472,6 +657,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this script measures the port on a card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tedm_tpu_torch.kernels import _build
+    from tedm_tpu_torch.kernels import attn_block as ab
     from tedm_tpu_torch.kernels import linear_attention as la
 
     with Phase("1. environment"):
@@ -483,6 +669,7 @@ def main() -> None:
         print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     with Phase("2. build"):
         sources = sorted(f[:-3] for f in os.listdir(_build.CSRC) if f.endswith(".cu"))
@@ -498,16 +685,25 @@ def main() -> None:
     with Phase("3. kernels vs plain"):
         fwd_rows = check_forward(la, gen, scale)
         bwd_rows = check_backward(la, gen, scale)
+        block_rows = check_block(ab, gen)
 
     with tempfile.TemporaryDirectory() as tmp:
         with Phase("4. serving path"):
-            serve_fwd = serve(la, tmp)
+            serve_fwd = serve(la, ab, tmp, mixed=False)
         with Phase("5. training path (a): backbone"):
-            backbone, a_fwd, a_bwd = train_backbone(la, tmp)
+            backbone, a_fwd, a_bwd, _ = train_backbone(la, ab, tmp, mixed=False)
         with Phase("6. training step: profile, card vs CPU"):
-            step_card_vs_cpu()
+            step_card_vs_cpu(mixed=False)
         with Phase("7. training path (b): TEDM head"):
-            b_fwd = train_head(la, tmp, backbone)
+            b_fwd = train_head(la, ab, tmp, backbone, mixed=False)
+        with Phase("8. bf16 serving path"):
+            serve_fused = serve(la, ab, tmp, mixed=True)
+        with Phase("9. bf16 training path (a): backbone"):
+            backbone16, _, _, a_fused = train_backbone(la, ab, tmp, mixed=True)
+        with Phase("10. bf16 training step: profile, card vs CPU"):
+            step_card_vs_cpu(mixed=True)
+        with Phase("11. bf16 training path (b): TEDM head"):
+            b_fused = train_head(la, ab, tmp, backbone16, mixed=True)
 
     kernels = [{
         "name": "linear_attention",
@@ -518,10 +714,10 @@ def main() -> None:
         "launches_by_path": {"serving": serve_fwd, "training (a)": a_fwd, "training (b)": b_fwd},
         "max_abs_err": max(r["max_abs_err"] for r in fwd_rows.values()),
         # times and bound of one serving request's 8 calls
-        **per_step_sum(fwd_rows, SERVE_SHAPES),
+        **calls_sum(fwd_rows, 2 * SERVE_SHAPES),  # each shape down and up
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in fwd_rows.values()) else "operations",
         "library_ms": None,  # no single PyTorch call computes this function
-        "train_step": per_step_sum(fwd_rows, TRAIN_SHAPES),
+        "train_step": calls_sum(fwd_rows, 2 * TRAIN_SHAPES),
         "per_shape": list(fwd_rows.values()),
     }, {
         "name": "linear_attention_backward",
@@ -533,10 +729,28 @@ def main() -> None:
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows.values()),
         "max_rel_err": max(r["max_rel_err"] for r in bwd_rows.values()),
         # times and bound of one training step's 8 calls
-        **per_step_sum(bwd_rows, TRAIN_SHAPES),
+        **calls_sum(bwd_rows, 2 * TRAIN_SHAPES),
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in bwd_rows.values()) else "operations",
         "library_ms": None,  # no single PyTorch call computes this function
         "per_shape": list(bwd_rows.values()),
+    }, {
+        "name": "prenorm_linear_attention",
+        "route": "cuda",
+        "source": "tedm_tpu_torch/kernels/csrc/attn_block.cu",
+        "replaces": "tedm_tpu/ops/pallas/attn_block.py:136",
+        "launches": serve_fused + a_fused + b_fused,
+        "launches_by_path": {"bf16 serving": serve_fused, "bf16 training (a)": a_fused,
+                             "bf16 training (b)": b_fused},
+        "max_abs_err": max(r["max_abs_err"] for r in block_rows.values()),
+        # the least that a control (the plain version with a stage altered) read
+        "min_control_err": min(r["min_control_err"] for r in block_rows.values()),
+        # times and bound of one bf16 serving request's 8 calls
+        **calls_sum(block_rows, block_shapes(8)),
+        # what bounds the call that bounds the request most
+        "bound_by": max((block_rows[sh] for sh in block_shapes(8)), key=lambda r: r["bound_ms"])["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes the block
+        "train_step": calls_sum(block_rows, block_shapes(16)),
+        "per_shape": [r for r in block_rows.values() if "ms" in r],
     }]
     for kern in kernels:
         if kern["launches"] == 0:

@@ -92,8 +92,9 @@ def _check(q: torch.Tensor, *others: torch.Tensor) -> None:
     for name, t in zip("qkvg", (q, *others)):
         if t.dtype != torch.float32:
             raise TypeError(
-                f"linear_attention CUDA kernel takes float32, got {name}.dtype={t.dtype} "
-                "(bf16 comes with the bf16 serving slice)"
+                f"linear_attention CUDA kernel takes float32, got {name}.dtype={t.dtype}: "
+                "a bf16 block runs as one fused block, kernels.attn_block.prenorm_linear_attention, "
+                "as in the JAX package"
             )
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")

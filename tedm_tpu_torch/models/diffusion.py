@@ -14,6 +14,11 @@ never agree, so the tests hand JAX's draws to the port.
 The JAX package runs the 1000-step reverse trajectory as one ``lax.scan``;
 here it is a Python loop of UNet calls under ``torch.no_grad``. DDIM and
 DPM-Solver++ sampling wait for a later slice.
+
+Under ``--mixed_precision`` the UNet returns bf16 while the images, the
+noise and the sampler's x stay fp32, as in the JAX package: the losses take
+the error in fp32, and a (B, 1, 1, 1) fp32 coefficient times a bf16 output
+promotes to fp32 in PyTorch as in JAX.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
-from tedm_tpu_torch.ops.schedules import DiffusionSchedule, extract
+from tedm_tpu_torch.ops.schedules import DiffusionSchedule, extract, gather
 
 # An apply function: (x_t, t) -> model output (epsilon or x_0 prediction).
 ApplyFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -237,7 +242,7 @@ def train_loss(
     out = apply_fn(q_sample(sched, x_0, t, noise), t)
     target = noise if objective == "pred_noise" else x_0
     err = (out.float() - target.float()).abs()
-    p2 = sched.p2_loss_weight[t]
+    p2 = gather(sched.p2_loss_weight, t)
     row_w = torch.ones(n, device=x_0.device) if valid is None else valid.float()
     denom = row_w.sum().clamp(min=1.0)
     total = (err.reshape(n, -1).mean(dim=1) * p2 * row_w).sum() / denom
@@ -285,7 +290,7 @@ def val_loss(
         out = apply_fn(q_sample(sched, x_rep, t_rep, nz), t_rep)
         tgt = nz if objective == "pred_noise" else x_rep
         l = (out.float() - tgt.float()).abs().reshape(fold_batch * n, -1).mean(dim=1)
-        l = l * sched.p2_loss_weight[t_rep]
+        l = l * gather(sched.p2_loss_weight, t_rep)
         per_t = (l.reshape(fold_batch, n) * row_w).sum(dim=1) / row_denom
         total = total + (per_t * v_chunks[c]).sum()
     return total / S

@@ -101,7 +101,8 @@ class PixelClassifier(nn.Sequential):
         self.offset = 1 if shared else 0
 
     def forward(self, feats: List[torch.Tensor]) -> torch.Tensor:
-        """feats: the 4 stage maps, each (n_steps*B, c_s, h_s, w_s) -> logits
+        """feats: the 4 stage maps, each (n_steps*B, c_s, h_s, w_s), fp32 or
+        the bf16 of a mixed-precision backbone -> fp32 logits
         (B, out_channels, img_size, img_size). BatchNorm as flax's
         (``flax_batch_norm``): running statistics in eval mode, batch
         statistics in train mode."""
@@ -112,7 +113,8 @@ class PixelClassifier(nn.Sequential):
         off = 0
         for s in range(self.n_steps):
             for f, c in zip(feats, self.stage_channels):
-                f_s = f[s * b:(s + 1) * b]
+                # fp32 head on features of any dtype (tedm_tpu/models/segmentation.py:126-129)
+                f_s = f[s * b:(s + 1) * b].float()
                 y = F.conv2d(f_s, w1[:, off:off + c])
                 y = nearest_resize(y, self.img_size, self.img_size)
                 acc = y if acc is None else acc + y

@@ -13,9 +13,21 @@ the ones ``tedm_tpu/utils/torch_port.py`` reads (``downs.0.2.fn.fn.to_qkv.weight
 ``best_model.pt`` loads as it is. ``extract_features=True`` also returns the
 four up-stage attention outputs, the features of the segmentation heads.
 
-Every LinearAttention runs ``kernels.linear_attention`` on the device its
-input lies on (the CUDA kernel on the card). The mid Attention stays plain
-PyTorch, as the JAX default runs it outside Pallas.
+``dtype`` is the compute dtype, with flax's ``dtype=`` semantics module by
+module (tedm_tpu/models/unet.py): the parameters stay fp32; every conv and
+linear layer casts its input, weight and bias to the compute dtype and
+returns it; GroupNorm+FiLM+SiLU and ChanLayerNorm keep fp32 statistics and
+return the compute dtype; the mid Attention computes in fp32 and casts
+before ``to_out``. The casts are explicit: ``torch.autocast`` keeps norms
+and softmax in fp32 and picks its own cast points, which the JAX package
+does not.
+
+In fp32 every LinearAttention runs ``kernels.linear_attention`` on the
+device its input lies on (the CUDA kernel on the card). In bf16 every
+Residual(PreNorm(LinearAttention)) runs as one block,
+``kernels.attn_block.prenorm_linear_attention`` (the fused CUDA kernel on
+the card), as the JAX package fuses it in bf16. The mid Attention stays
+plain PyTorch, as the JAX default runs it outside Pallas.
 """
 
 from __future__ import annotations
@@ -27,14 +39,40 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tedm_tpu_torch.kernels.attn_block import prenorm_linear_attention
 from tedm_tpu_torch.kernels.groupnorm import group_norm_film_silu_reference
 from tedm_tpu_torch.kernels.linear_attention import linear_attention
 from tedm_tpu_torch.ops.resize import nearest_upsample_2x
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in ``compute_dtype``: input, weight and bias are cast to
+    it, and so is the output. The parameters stay fp32."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` in ``compute_dtype``, as ``Conv2d``."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
 class ChanLayerNorm(nn.Module):
     """Channel-wise LayerNorm with gain only, biased variance, eps 1e-5,
-    fp32 statistics (reference: models/unet_model.py:52-61)."""
+    fp32 statistics, output in ``compute_dtype``
+    (reference: models/unet_model.py:52-61)."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, dim: int):
         super().__init__()
@@ -43,7 +81,7 @@ class ChanLayerNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         var, mean = torch.var_mean(xf, dim=1, correction=0, keepdim=True)
-        return ((xf - mean) * torch.rsqrt(var + 1e-5) * self.g).to(x.dtype)
+        return ((xf - mean) * torch.rsqrt(var + 1e-5) * self.g).to(self.compute_dtype)
 
 
 class SinusoidalPosEmb(nn.Module):
@@ -69,7 +107,7 @@ class TimeMLP(nn.Sequential):
 
     def __init__(self, dim: int, time_dim: int):
         super().__init__(
-            SinusoidalPosEmb(dim), nn.Linear(dim, time_dim), nn.GELU(), nn.Linear(time_dim, time_dim)
+            SinusoidalPosEmb(dim), Linear(dim, time_dim), nn.GELU(), Linear(time_dim, time_dim)
         )
 
 
@@ -97,7 +135,7 @@ class Block(nn.Module):
 
     def __init__(self, dim: int, dim_out: int, groups: int = 8):
         super().__init__()
-        self.proj = nn.Conv2d(dim, dim_out, 3, padding=1)
+        self.proj = Conv2d(dim, dim_out, 3, padding=1)
         self.norm = GroupNormFilmSiLU(dim_out, groups)
 
     def forward(self, x, scale_shift=None):
@@ -112,13 +150,13 @@ class ResnetBlock(nn.Module):
     def __init__(self, dim: int, dim_out: int, time_emb_dim: Optional[int] = None, groups: int = 8):
         super().__init__()
         self.time_mlp = (
-            nn.Sequential(nn.SiLU(), nn.Linear(time_emb_dim, dim_out * 2))
+            nn.Sequential(nn.SiLU(), Linear(time_emb_dim, dim_out * 2))
             if time_emb_dim is not None
             else None
         )
         self.block1 = Block(dim, dim_out, groups)
         self.block2 = Block(dim_out, dim_out, groups)
-        self.res_conv = nn.Conv2d(dim, dim_out, 1) if dim != dim_out else nn.Identity()
+        self.res_conv = Conv2d(dim, dim_out, 1) if dim != dim_out else nn.Identity()
 
     def forward(self, x, time_emb: Optional[torch.Tensor] = None):
         scale_shift = None
@@ -138,8 +176,8 @@ class LinearAttention(nn.Module):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
         hidden = heads * dim_head
-        self.to_qkv = nn.Conv2d(dim, hidden * 3, 1, bias=False)
-        self.to_out = nn.Sequential(nn.Conv2d(hidden, dim, 1), ChanLayerNorm(dim))
+        self.to_qkv = Conv2d(dim, hidden * 3, 1, bias=False)
+        self.to_out = nn.Sequential(Conv2d(hidden, dim, 1), ChanLayerNorm(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, _, h, w = x.shape
@@ -163,8 +201,8 @@ class Attention(nn.Module):
         super().__init__()
         self.heads, self.dim_head, self.scale = heads, dim_head, scale
         hidden = heads * dim_head
-        self.to_qkv = nn.Conv2d(dim, hidden * 3, 1, bias=False)
-        self.to_out = nn.Conv2d(hidden, dim, 1)
+        self.to_qkv = Conv2d(dim, hidden * 3, 1, bias=False)
+        self.to_out = Conv2d(hidden, dim, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, _, h, w = x.shape
@@ -192,19 +230,34 @@ class PreNorm(nn.Module):
 
 class PreNormAttn(nn.Module):
     """Residual(PreNorm(attn)) as used in every stage
-    (reference: models/unet_model.py:29-36, 64-73); keys ``fn.norm.g``, ``fn.fn.*``."""
+    (reference: models/unet_model.py:29-36, 64-73); keys ``fn.norm.g``, ``fn.fn.*``.
+
+    With a LinearAttention in bf16 the whole block is one call of the fused
+    block on x, the (B, C, H*W) view (tedm_tpu/models/unet.py:460-475), with
+    the same parameters."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, dim: int, attn: nn.Module):
         super().__init__()
         self.fn = PreNorm(dim, attn)
 
     def forward(self, x):
+        attn = self.fn.fn
+        if isinstance(attn, LinearAttention) and self.compute_dtype == torch.bfloat16:
+            b, c, h, w = x.shape
+            to_out, out_norm = attn.to_out
+            y = prenorm_linear_attention(
+                x.reshape(b, c, h * w), self.fn.norm.g, attn.to_qkv.weight,
+                to_out.weight, to_out.bias, out_norm.g,
+            )
+            return y.reshape(b, c, h, w)
         return self.fn(x) + x
 
 
 def Downsample(dim: int, dim_out: int) -> nn.Conv2d:
     """Conv 4x4, stride 2, pad 1 (reference: models/unet_model.py:47-49)."""
-    return nn.Conv2d(dim, dim_out, 4, stride=2, padding=1)
+    return Conv2d(dim, dim_out, 4, stride=2, padding=1)
 
 
 class NearestUpsample2x(nn.Module):
@@ -216,7 +269,7 @@ class Upsample(nn.Sequential):
     """Nearest 2x + conv 3x3 (reference: models/unet_model.py:39-44); key ``.1``."""
 
     def __init__(self, dim: int, dim_out: int):
-        super().__init__(NearestUpsample2x(), nn.Conv2d(dim, dim_out, 3, padding=1))
+        super().__init__(NearestUpsample2x(), Conv2d(dim, dim_out, 3, padding=1))
 
 
 class Unet(nn.Module):
@@ -229,17 +282,19 @@ class Unet(nn.Module):
         channels: int = 1,
         resnet_block_groups: int = 8,
         in_channels: Optional[int] = None,
+        dtype: torch.dtype = torch.float32,
     ):
         """``channels`` is the width of the output (and by default of the
         input); ``in_channels`` widens the input for the conditional modes,
-        whose input is the noised x concatenated with the condition."""
+        whose input is the noised x concatenated with the condition.
+        ``dtype`` is the compute dtype (bf16 under ``--mixed_precision``)."""
         super().__init__()
         dims = [dim] + [dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
         time_dim = dim * 4
         g = resnet_block_groups
 
-        self.init_conv = nn.Conv2d(in_channels or channels, dim, 7, padding=3)
+        self.init_conv = Conv2d(in_channels or channels, dim, 7, padding=3)
         self.time_mlp = TimeMLP(dim, time_dim)
 
         self.downs = nn.ModuleList()
@@ -249,7 +304,7 @@ class Unet(nn.Module):
                 ResnetBlock(dim_in, dim_in, time_dim, g),
                 ResnetBlock(dim_in, dim_in, time_dim, g),
                 PreNormAttn(dim_in, LinearAttention(dim_in)),
-                Downsample(dim_in, dim_out) if not is_last else nn.Conv2d(dim_in, dim_out, 3, padding=1),
+                Downsample(dim_in, dim_out) if not is_last else Conv2d(dim_in, dim_out, 3, padding=1),
             ]))
 
         mid_dim = dims[-1]
@@ -264,11 +319,16 @@ class Unet(nn.Module):
                 ResnetBlock(dim_out + dim_in, dim_out, time_dim, g),
                 ResnetBlock(dim_out + dim_in, dim_out, time_dim, g),
                 PreNormAttn(dim_out, LinearAttention(dim_out)),
-                Upsample(dim_out, dim_in) if not is_last else nn.Conv2d(dim_out, dim_in, 3, padding=1),
+                Upsample(dim_out, dim_in) if not is_last else Conv2d(dim_out, dim_in, 3, padding=1),
             ]))
 
         self.final_res_block = ResnetBlock(dim * 2, dim, time_dim, g)
-        self.final_conv = nn.Conv2d(dim, channels, 1)
+        self.final_conv = Conv2d(dim, channels, 1)
+
+        self.compute_dtype = dtype
+        for m in self.modules():
+            if hasattr(m, "compute_dtype"):
+                m.compute_dtype = dtype
 
     def forward(
         self,
@@ -278,7 +338,8 @@ class Unet(nn.Module):
         extract_features: bool = False,
     ):
         """x (B, C, H, W), time (B,) integer steps or None. With
-        ``extract_features`` returns (out, [the 4 up-stage attention outputs])."""
+        ``extract_features`` returns (out, [the 4 up-stage attention outputs]),
+        all in the compute dtype."""
         temb = self.time_mlp(time) if time is not None else None
         x = self.init_conv(x)
         r = x

@@ -95,8 +95,17 @@ def make_schedule(
     )
 
 
+def gather(table: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``table[t]`` with t clamped to [0, T-1], as JAX clamps an
+    out-of-range gather: a TEDM head (timesteps up to 800) on a backbone of
+    T <= 800 steps reads the last entry, where strict indexing would raise
+    (and, on the card, trip a device-side assert)."""
+    return table[t.clamp(0, table.shape[0] - 1)]
+
+
 def extract(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
-    """Gather per-sample coefficients at t:(B,) and shape them (B, 1, ..., 1)
-    to broadcast against an ndim image batch (reference: trainers/utils.py:48-59)."""
-    out = table[t]
+    """Gather per-sample coefficients at t:(B,) (clamped, see ``gather``) and
+    shape them (B, 1, ..., 1) to broadcast against an ndim image batch
+    (reference: trainers/utils.py:48-59)."""
+    out = gather(table, t)
     return out.reshape(out.shape[0], *((1,) * (ndim - 1)))

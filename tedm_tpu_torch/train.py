@@ -22,7 +22,6 @@ HEAD_EXPERIMENTS = ("LEDM", "LEDMe", "TEDM")
 
 # (flag, is it set, the ROADMAP item that ports its feature)
 NOT_PORTED = (
-    ("--mixed_precision", lambda c: c.mixed_precision, "A.3"),
     ("--use_pallas_groupnorm", lambda c: c.use_pallas_groupnorm, "A.4"),
     ("--use_pallas_resblock", lambda c: c.use_pallas_resblock, "A.4"),
     ("--use_pallas_flash", lambda c: c.use_pallas_flash, "A.4"),
@@ -65,9 +64,12 @@ def dispatch(config: Config, device: Union[str, torch.device] = "cuda") -> None:
 
 def main(argv: Optional[Sequence[str]] = None, device: Union[str, torch.device] = "cuda") -> None:
     # fp32 means fp32: no TF32 in cuDNN convolutions (on by default) or in
-    # matrix products, as the tolerances against the JAX package assume
+    # matrix products, as the tolerances against the JAX package assume; and
+    # a bf16 product sums in fp32, with no bf16 split-K reduction (on by
+    # default), as JAX's preferred_element_type=float32 does
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dispatch(config_from_args(argv), device)
 
 

@@ -41,6 +41,14 @@ def init_seeded(seed: int, build: Callable[[], torch.nn.Module]) -> torch.nn.Mod
         return build()
 
 
+def compute_dtype(config: Config) -> torch.dtype:
+    """The UNet's compute dtype: bf16 under ``--mixed_precision``, as the JAX
+    trainers pick it (tedm_tpu/trainers/datasetdm.py:40,
+    tedm_tpu/trainers/diffusion.py:63). The parameters, Adam's moments and
+    the checkpoints stay fp32; no loss scaling, as in JAX."""
+    return torch.bfloat16 if config.mixed_precision else torch.float32
+
+
 def to_nchw(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """An NHWC numpy batch as a contiguous NCHW float32 tensor on ``device``."""
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32).transpose(0, 3, 1, 2))).to(device)

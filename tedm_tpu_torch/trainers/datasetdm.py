@@ -23,7 +23,7 @@ from tedm_tpu_torch.data.pipeline import build_dataloaders
 from tedm_tpu_torch.models.segmentation import PixelClassifier, extract_features
 from tedm_tpu_torch.models.unet import Unet
 from tedm_tpu_torch.ops.schedules import DiffusionSchedule, make_schedule
-from tedm_tpu_torch.trainers.common import init_seeded, train_segmentation
+from tedm_tpu_torch.trainers.common import compute_dtype, init_seeded, train_segmentation
 from tedm_tpu_torch.utils.checkpoint import checkpoint_exists, load_checkpoint, load_config
 from tedm_tpu_torch.utils.device import resolve_device
 from tedm_tpu_torch.utils.logging import MetricsLogger
@@ -36,11 +36,13 @@ def load_backbone(
     in eval mode on ``device``, with its schedule: restored from
     ``config.saved_diffusion_model`` when a checkpoint is there (its EMA
     weights when present, unless ``serve_raw_params``), else initialised from
-    ``config.seed`` with a warning."""
+    ``config.seed`` with a warning. The compute dtype is ``config``'s: an fp32
+    checkpoint serves a bf16 head."""
     dev = resolve_device(device)
+    dtype = compute_dtype(config)
     if checkpoint_exists(config.saved_diffusion_model):
         old = load_config(config.saved_diffusion_model)
-        unet = Unet(dim=old.dim, dim_mults=tuple(old.dim_mults), channels=old.channels)
+        unet = Unet(dim=old.dim, dim_mults=tuple(old.dim_mults), channels=old.channels, dtype=dtype)
         state, _ = load_checkpoint(config.saved_diffusion_model, config)
         served = state["params"] if config.serve_raw_params else state.get("ema_params", state["params"])
         unet.load_state_dict(served)
@@ -49,7 +51,8 @@ def load_backbone(
         print(f"No model found at {config.saved_diffusion_model}. Please load model!")
         unet = init_seeded(
             config.seed,
-            lambda: Unet(dim=config.dim, dim_mults=tuple(config.dim_mults), channels=config.channels),
+            lambda: Unet(dim=config.dim, dim_mults=tuple(config.dim_mults), channels=config.channels,
+                         dtype=dtype),
         )
         sched = make_schedule(config.timesteps, config.beta_schedule)
     return unet.to(dev).eval().requires_grad_(False), sched.to(dev)

@@ -204,7 +204,7 @@ def test_main_trains_validates_resumes_and_feeds_the_backbone(tmp_path):
         (["--experiment", "TEDM", "--grad_accum", "2"], ValueError, "grad_accum"),
         (["--remat"], NotImplementedError, "--remat .*A.5"),
         (["--profile_dir", "p"], NotImplementedError, "--profile_dir .*A.5"),
-        (["--mixed_precision"], NotImplementedError, "A.3"),
+        (["--use_pallas_groupnorm"], NotImplementedError, "--use_pallas_groupnorm .*A.4"),
         (["--use_pallas_resblock"], NotImplementedError, "A.4"),
         (["--param_sharding", "fsdp"], NotImplementedError, "A.5"),
         ([], RuntimeError, "CUDA is not available"),  # the card by default, never a CPU fallback
@@ -214,6 +214,8 @@ def test_train_main_refuses_what_is_not_ported_and_turns_tf32_off(extra, exc, ma
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_bf16_reduced_precision_reduction", True)
     with pytest.raises(exc, match=match):
         train_main(ARGS + ["--log_dir", str(tmp_path / "r")] + extra)
     assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
