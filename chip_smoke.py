@@ -17,6 +17,9 @@ Phases, each of which exits non-zero on failure:
      the serving and training shapes and at edges, on inputs where every
      stage of the attention moves the output, with controls (the plain
      version with a stage altered) that must read above the tolerance;
+     the GroupNorm+FiLM+SiLU, ResnetBlock and flash cosine-attention
+     kernels vs plain at every call shape of the default UNet at batch 8
+     and 16, in fp32 and bf16, and at edges, each with its controls;
      device times (CUDA events) beside each kernel's bound;
   4. serving path: a full-width TEDM model (random weights from a seed)
      saved with the port's save_checkpoint and served through Predictor for
@@ -42,7 +45,17 @@ Phases, each of which exits non-zero on failure:
      card and on the CPU plain path;
  11. bf16 training path (b): a ``--mixed_precision`` TEDM head on phase
      9's backbone, then one request served from its best checkpoint;
- 12. one JSON line listing every kernel, then the final JSON status line.
+ 12. opt-in serving: phase 4's weights served from configs that set
+     ``--use_pallas_groupnorm --use_pallas_flash`` (38 GroupNorm and 1
+     flash launches a request) and ``--use_pallas_resblock
+     --use_pallas_flash`` (19 ResnetBlock and 1 flash launches, no
+     GroupNorm), each in fp32 and bf16, against the CPU plain path of the
+     same config, and against the flag-off request of phases 4 and 8;
+ 13. opt-in training: backbone steps at batch 16 with ``--use_pallas_resblock
+     --use_pallas_flash`` in fp32 and bf16, each with a profiled step and a
+     batch-2 step against the CPU plain path, and TEDM head steps with
+     ``--use_pallas_groupnorm``;
+then one JSON line listing every kernel and the final JSON status line.
 """
 
 from __future__ import annotations
@@ -59,6 +72,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 SEED = 0
 N_REQUESTS = 4
@@ -87,6 +101,10 @@ BF16_PATH_TOL = 3e-3
 # backward, summed in other orders)
 BF16_STEP_LOSS_TOL = 1e-2
 BF16_STEP_GRAD_TOL = 5e-2
+OPT_IN_STEPS = 8               # backbone steps of each opt-in training run
+HEAD_STEPS = 2                 # TEDM head steps with --use_pallas_groupnorm
+GN, RB, FA = "fused_group_norm_film_silu", "fused_resnet_block", "flash_cosine_attention"
+KERNELS = ("linear_attention", "linear_attention_backward", "prenorm_linear_attention", GN, RB, FA)
 
 
 def fail(msg: str) -> None:
@@ -135,6 +153,9 @@ KERNEL_KINDS = (
     ("linear_attention forward kernel", ("context_partials", "combine_context", "apply_context")),
     ("linear_attention backward kernel", ("grad_partials", "combine_grad", "apply_grad")),
     ("prenorm_linear_attention kernel", ("kv_partials", "::combine(", "apply_block")),
+    ("fused_group_norm_film_silu kernel", ("gn_partials", "gn_apply")),
+    ("fused_resnet_block kernel", ("conv_tile", "gn_coefs", "finish_identity")),
+    ("flash_cosine_attention kernel", ("row_norms", "flash_fwd")),
     ("convolution / gemm", ("conv", "cudnn", "xmma", "gemm", "fft", "dgrad", "wgrad",
                             "pointwise_mult_and_sum_complex")),
     ("optimizer / EMA (foreach)", ("multi_tensor", "foreach")),
@@ -379,29 +400,322 @@ def block_errors(ab, args, what):
     return err, min(controls.values())
 
 
-def calls_sum(rows, shapes) -> dict:
-    """Times and bound summed over calls of the given shapes, one a shape
-    as listed."""
-    return {key: sum(rows[s][key] for s in shapes) for key in ("ms", "plain_ms", "bound_ms")}
+def calls_sum(rows, keys) -> dict:
+    """Times and bound summed over calls, one a key as listed, with the
+    flag-off block's and the library call's times where the rows have them."""
+    return {k: sum(rows[key][k] for key in keys)
+            for k in ("ms", "plain_ms", "bound_ms", "default_ms", "library_ms") if k in rows[keys[0]]}
 
 
-def serve(la, ab, tmp, mixed: bool):
-    """Phases 4 and 8: the serving path. fp32: a TEDM model with random
-    weights from the seed, saved and served; bf16 (``mixed``): the same
-    weights under a config with ``mixed_precision``. Returns the launches of
-    the path's kernel: the linear-attention forward in fp32, the fused block
-    in bf16."""
+def gate(dtype) -> float:
+    """The forward gate of KERNELS.json: 2e-5 in fp32, 5e-2 in bf16, absolute."""
+    return BLOCK_TOL if dtype == torch.bfloat16 else LA_TOL
+
+
+def held(name, out, ref, controls, what, dtype) -> tuple:
+    """The kernel's output against its plain version, and against each
+    control (the plain version with one stage altered), which it must differ
+    from by more than the gate. Returns (error, least control reading)."""
+    tol = gate(dtype)
+    err = (out.float() - ref.float()).abs().max().item()
+    if not err <= tol:
+        fail(f"{name} kernel disagrees with its plain version at {what}: {err} (tol {tol})")
+    reads = {}
+    for cname, control in controls.items():
+        reads[cname] = (out.float() - control.float()).abs().max().item()
+        if not reads[cname] > tol:
+            fail(f"{name} check at {what} cannot see its {cname} control: {reads[cname]}")
+    return err, min(reads.values(), default=float("inf"))
+
+
+def dtype_name(dtype) -> str:
+    return "bf16" if dtype == torch.bfloat16 else "fp32"
+
+
+# ------------------------------------------------------------------ B.3
+
+def gn_calls(batch: int) -> list:
+    """((B, C, H, W), FiLM?) of the default UNet's 38 GroupNorms, in call
+    order: two per ResnetBlock, of its output width, the first with FiLM."""
+    from tedm_tpu_torch.kernels.bounds import unet_stages
+
+    return [((batch, c_out, s, s), film) for _, c_out, s in unet_stages()[1] for film in (True, False)]
+
+
+def gn_inputs(gen, shape, dtype, film, strided=False):
+    """x whose channels and groups differ in mean and spread, as a conv's
+    output does (group means +-3 in turn, so that the control below reads
+    far above the gate), gamma and beta, and FiLM rows as the strided
+    halves of one (B, 2C) tensor, as the time MLP gives them. With
+    ``strided``, x is the middle third of a (B, 3C, H, W) tensor: a batch
+    stride of its own. Gains and FiLM keep |out| below 4, where one bf16
+    ulp is 1.56e-2 at most."""
+    b, c = shape[:2]
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    offset = torch.tensor([3.0, -3.0] * 4, device="cuda").repeat_interleave(c // 8).reshape(1, c, 1, 1)
+    x = (r(*shape) * (1 + r(1, c, 1, 1).abs()) + 0.3 * r(1, c, 1, 1) + offset).to(dtype)
+    if strided:
+        x = torch.cat([r(*shape).to(dtype), x, r(*shape).to(dtype)], dim=1)[:, c:2 * c]
+    scale, shift = (0.15 * r(b, 2 * c)).to(dtype).chunk(2, dim=1) if film else (None, None)
+    return x, 0.35 * (1 + 0.1 * r(c)), 0.1 * r(c), scale, shift
+
+
+def gn_check(gn, args, what):
+    """The kernel against its plain version and the control: group 0's
+    statistics taken over the wrong span, one group on (group 1's)."""
+    x = args[0]
+    mean, rstd = gn.group_stats(x)
+    mean, rstd = mean.clone(), rstd.clone()
+    mean[:, 0], rstd[:, 0] = mean[:, 1], rstd[:, 1]
+    controls = {"group 0 over a wrong span": gn.group_norm_film_silu_reference(*args, stats=(mean, rstd))}
+    return held("fused_group_norm_film_silu", gn.fused_group_norm_film_silu(*args),
+                gn.group_norm_film_silu_reference(*args), controls, what, x.dtype)
+
+
+def check_groupnorm(gn, gen):
+    """B.3 against its plain version at every call shape of the default UNet
+    at batch 8 and 16, in fp32 and bf16, with and without FiLM, and at
+    edges; per-call rows with times."""
+    from tedm_tpu_torch.kernels.bounds import bound, groupnorm_call
+
+    rows = {}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            for shape, film in dict.fromkeys(gn_calls(8) + gn_calls(16)):
+                args = gn_inputs(gen, shape, dtype, film)
+                err, control = gn_check(gn, args, (shape, dtype, film))
+                b, c, h, w = shape
+                row = {"shape": list(shape), "dtype": dtype_name(dtype), "film": film, "max_abs_err": err,
+                       "min_control_err": control,
+                       "ms": device_ms(lambda: gn.fused_group_norm_film_silu(*args)),
+                       "plain_ms": device_ms(lambda: gn.group_norm_film_silu_reference(*args)),
+                       **bound(*groupnorm_call(b, c, h * w, args[0].element_size()))}
+                rows[(shape, dtype, film)] = row
+                print(f"fused_group_norm_film_silu {shape} {row['dtype']} film={film}: max_abs_err {err:.3e} "
+                      f"(controls >= {control:.3f}) kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
+                      f"bound {1e3 * row['bound_ms']:.2f} us", flush=True)
+                del args
+            edges = [(s, f) for s in [(1, 64, 1, 1), (3, 16, 1, 17), (1, 64, 15, 17), (3, 32, 8, 12), (1, 16, 8, 12)]
+                     for f in (True, False)]
+            for shape, film in edges:
+                gn_check(gn, gn_inputs(gen, shape, dtype, film), (shape, dtype))
+            args = gn_inputs(gen, (2, 64, 12, 8), dtype, True, strided=True)
+            if args[0].is_contiguous():
+                fail("the strided-x check got a contiguous x")
+            gn_check(gn, args, "x with a batch stride")
+    print("fused_group_norm_film_silu edges (N = 1, 17, 255; 8x12; C = 16; B = 1, 3; a strided x) and "
+          "strided FiLM rows: within tolerance", flush=True)
+    return rows
+
+
+# ------------------------------------------------------------------ B.4
+
+def rb_shapes(batch: int) -> list:
+    """(B, Cin, Cout, H, W) of the default UNet's 19 ResnetBlocks, in call order."""
+    from tedm_tpu_torch.kernels.bounds import unet_stages
+
+    return [(batch, c_in, c_out, s, s) for c_in, c_out, s in unet_stages()[1]]
+
+
+def rb_inputs(gen, shape, dtype, film=True, x=None):
+    """x and the block's fp32 parameters at a conv's scale (weights of
+    variance 1 / fan_in), FiLM rows as strided halves. GN1's shift at 0.5
+    moves SiLU(GN1(0)) well off 0, so that the conv2-padding control reads
+    far above the gate. x at 0.2 and GN2's gain at 0.4 keep |out| below 4,
+    where one bf16 ulp is 1.56e-2 at most."""
+    b, cin, cout, h, w = shape
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    if x is None:
+        x = 0.2 * r(b, cin, h, w)
+    res = cin != cout
+    scale, shift = (0.5 * r(b, 2 * cout)).to(dtype).chunk(2, dim=1) if film else (None, None)
+    return (x.to(dtype), r(cout, cin, 3, 3) * (9 * cin) ** -0.5, 0.1 * r(cout), 1 + 0.1 * r(cout), 0.5 * r(cout),
+            scale, shift, r(cout, cout, 3, 3) * (9 * cout) ** -0.5, 0.1 * r(cout), 0.4 * (1 + 0.1 * r(cout)),
+            0.04 * r(cout), r(cout, cin, 1, 1) * cin ** -0.5 if res else None, 0.1 * r(cout) if res else None)
+
+
+def rb_check(rb, args, what):
+    """The kernel against its plain version and the controls: FiLM dropped,
+    the 3x3 taps flipped left-right (not on a one-column image, where only
+    the centre tap reads), and conv2's zero padding replaced by GN1+SiLU of
+    0, the likeliest bug of a normalising prologue, seen at the borders.
+    Each must read above the gate."""
+    ref = rb.resnet_block_reference
+    controls = {"conv2 pads after GN1+SiLU": ref(*args, pad_after_norm=True)}
+    if args[5] is not None:
+        controls["FiLM dropped"] = ref(*args[:5], None, None, *args[7:])
+    if args[0].shape[-1] > 1:
+        flipped = list(args)
+        flipped[1], flipped[7] = args[1].flip(-1), args[7].flip(-1)
+        controls["taps flipped"] = ref(*flipped)
+    return held("fused_resnet_block", rb.fused_resnet_block(*args), ref(*args), controls, what, args[0].dtype)
+
+
+def default_block(args):
+    """The port's flag-off ResnetBlock (no time MLP) on the same weights and
+    FiLM rows, in x's dtype: a thunk of its forward."""
+    from tedm_tpu_torch.models.unet import ResnetBlock
+
+    x, w1, b1, g1, be1, scale, shift, w2, b2, g2, be2, wres, bres = args
+    m = ResnetBlock(w1.shape[1], w1.shape[0]).cuda().eval()
+    for mod in m.modules():
+        if hasattr(mod, "compute_dtype"):
+            mod.compute_dtype = x.dtype
+    pairs = [(m.block1.proj.weight, w1), (m.block1.proj.bias, b1), (m.block1.norm.weight, g1), (m.block1.norm.bias, be1),
+             (m.block2.proj.weight, w2), (m.block2.proj.bias, b2), (m.block2.norm.weight, g2), (m.block2.norm.bias, be2)]
+    if wres is not None:
+        pairs += [(m.res_conv.weight, wres), (m.res_conv.bias, bres)]
+    for p, v in pairs:
+        p.data.copy_(v)
+    ss = None if scale is None else (scale, shift)
+    return lambda: m.block2(m.block1(x, ss)) + m.res_conv(x)
+
+
+def check_resblock(rb, gen):
+    """B.4 against its plain version at every call shape of the default UNet
+    at batch 8 and 16, in fp32 and bf16, and at edges; per-call rows with the
+    kernel's, the plain version's and the flag-off block's times."""
+    from tedm_tpu_torch.kernels.bounds import bound, resblock_call
+
+    rows = {}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            for shape in dict.fromkeys(rb_shapes(8) + rb_shapes(16)):
+                args = rb_inputs(gen, shape, dtype)
+                err, control = rb_check(rb, args, (shape, dtype))
+                b, cin, cout, h, w = shape
+                row = {"shape": list(shape), "dtype": dtype_name(dtype), "max_abs_err": err, "min_control_err": control,
+                       "ms": device_ms(lambda: rb.fused_resnet_block(*args)),
+                       "plain_ms": device_ms(lambda: rb.resnet_block_reference(*args)),
+                       "default_ms": device_ms(default_block(args)),
+                       **bound(*resblock_call(b, cin, cout, h * w, args[0].element_size()))}
+                rows[(shape, dtype)] = row
+                print(f"fused_resnet_block {shape} {row['dtype']}: max_abs_err {err:.3e} (controls >= {control:.3f}) "
+                      f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms flag-off block "
+                      f"{row['default_ms']:.4f} ms bound {1e3 * row['bound_ms']:.2f} us ({row['bound_by']})", flush=True)
+                del args
+            edges = [((1, 64, 64, 1, 1), True), ((3, 16, 24, 1, 17), True), ((1, 32, 16, 15, 17), True),
+                     ((3, 16, 16, 8, 12), True), ((1, 64, 64, 8, 12), False), ((2, 24, 16, 8, 12), False)]
+            for shape, film in edges:
+                rb_check(rb, rb_inputs(gen, shape, dtype, film), (shape, dtype, film))
+            wide = (0.2 * torch.randn(2, 3 * 64, 12, 8, generator=gen, device="cuda")).to(dtype)
+            rb_check(rb, rb_inputs(gen, (2, 64, 64, 12, 8), dtype, x=wide[:, 64:128]), "x with a batch stride")
+    print("fused_resnet_block edges (N = 1, 17, 255; 8x12; C = 16; B = 1, 3; no FiLM; identity and 1x1 "
+          "residual; a strided x): within tolerance", flush=True)
+    return rows
+
+
+# ------------------------------------------------------------------ B.5
+
+def fa_inputs(gen, b, n, dtype):
+    """q, k, v as the three chunks of a qkv conv output (B, 3*128, N):
+    views with a batch stride of 3*128*N, as the UNet passes them."""
+    qkv = torch.randn(b, 3 * 128, n, generator=gen, device="cuda").to(dtype)
+    return tuple(t.reshape(b, 4, 32, n) for t in qkv.chunk(3, dim=1))
+
+
+def check_flash(fa, gen):
+    """B.5 against its plain version at the mid stage (N = 256) at batch 8
+    and 16, at N = 1024 and 4096 (256^2 and 512^2 inputs) and at edges, in
+    fp32 and bf16, with its control (the norms over d instead of N); per-call
+    rows with times and the time of F.scaled_dot_product_attention(scale=16)
+    on pre-normalised q and k, the library's call for the same function."""
+    from tedm_tpu_torch.kernels.bounds import bound, flash_call
+
+    rows = {}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            for b, n in [(8, 256), (16, 256), (8, 1024), (8, 4096), (2, 1), (3, 17), (1, 255)]:
+                q, k, v = fa_inputs(gen, b, n, dtype)
+                # at N = 1 the output is v whatever the norms: no control can read there
+                controls = {"norms over d": fa.cosine_attention_reference(q, k, v, 16.0, norm_dim=2)} if n > 1 else {}
+                err, ctl = held("flash_cosine_attention", fa.flash_cosine_attention(q, k, v, 16.0),
+                                fa.cosine_attention_reference(q, k, v, 16.0), controls, (b, n, dtype), dtype)
+                if b < 8:
+                    continue
+                qn, kn = (F.normalize(t.float(), dim=-1).to(dtype).transpose(2, 3).contiguous() for t in (q, k))
+                vn = v.transpose(2, 3).contiguous()
+                row = {"shape": [b, 4, 32, n], "dtype": dtype_name(dtype), "max_abs_err": err, "min_control_err": ctl,
+                       "ms": device_ms(lambda: fa.flash_cosine_attention(q, k, v, 16.0)),
+                       "plain_ms": device_ms(lambda: fa.cosine_attention_reference(q, k, v, 16.0)),
+                       "library_ms": device_ms(lambda: F.scaled_dot_product_attention(qn, kn, vn, scale=16.0)),
+                       **bound(*flash_call(b, n, q.element_size()))}
+                rows[(b, n, dtype)] = row
+                print(f"flash_cosine_attention {(b, 4, 32, n)} {row['dtype']}: max_abs_err {err:.3e} (control "
+                      f"{ctl:.3f}) kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms sdpa "
+                      f"{row['library_ms']:.4f} ms bound {1e3 * row['bound_ms']:.2f} us", flush=True)
+    print("flash_cosine_attention edges (N = 1, 17, 255; B = 2, 3, 1) on strided q, k, v views: within tolerance",
+          flush=True)
+    return rows
+
+
+# ------------------------------------------------------------------ launches
+
+def counters() -> dict:
+    """Each kernel's launch counter: (its wrapper, the attribute)."""
+    from tedm_tpu_torch.kernels import attn_block, flash_attention, groupnorm, linear_attention, resblock
+
+    return {"linear_attention": (linear_attention.linear_attention, "launches"),
+            "linear_attention_backward": (linear_attention.linear_attention, "backward_launches"),
+            "prenorm_linear_attention": (attn_block.prenorm_linear_attention, "launches"),
+            GN: (groupnorm.fused_group_norm_film_silu, "launches"),
+            RB: (resblock.fused_resnet_block, "launches"),
+            FA: (flash_attention.flash_cosine_attention, "launches")}
+
+
+def reset_launches() -> None:
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_launches() -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in counters().items()}
+
+
+def launches(**counts) -> dict:
+    """A launch count for every kernel, 0 unless given."""
+    return {k: counts.get(k, 0) for k in KERNELS}
+
+
+def per_unet_call(mixed: bool, flags=(), backward: bool = False) -> dict:
+    """Launches of one UNet forward (and backward) of the path: 8 linear
+    attentions (fp32) or fused blocks (bf16), and the opt-in kernels its
+    flags switch on; ResnetBlock wins over GroupNorm."""
+    counts = {"prenorm_linear_attention": 8} if mixed else {"linear_attention": 8}
+    if backward and not mixed:
+        counts["linear_attention_backward"] = 8
+    if "--use_pallas_resblock" in flags:
+        counts[RB] = 19
+    elif "--use_pallas_groupnorm" in flags:
+        counts[GN] = 38
+    if "--use_pallas_flash" in flags:
+        counts[FA] = 1
+    return launches(**counts)
+
+
+def label_of(mixed: bool, flags=()) -> str:
+    return " ".join(["bf16"] * mixed + list(flags)) + (" " if mixed or flags else "")
+
+
+# ------------------------------------------------------------------ paths
+
+def serve(tmp, mixed: bool, flags=(), flag_off=None):
+    """Phases 4, 8 and 12: the serving path. fp32 without flags: a TEDM model
+    with random weights from the seed, saved and served; otherwise the same
+    weights under a config with ``mixed_precision`` and the opt-in ``flags``.
+    Returns the launches, the probabilities of one request (image 0, fixed
+    noise) and the median latency."""
     from tedm_tpu_torch.config import Config
     from tedm_tpu_torch.serve.app import Predictor
     from tedm_tpu_torch.trainers.datasetdm import build_task
     from tedm_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
-    label = "bf16 " if mixed else ""
+    label = label_of(mixed, flags)
     logs32 = os.path.join(tmp, "serve", "logs")
-    if mixed:
+    if mixed or flags:
         state, cfg = load_checkpoint(os.path.join(logs32, "TEDM", "1", "best"), verbose=False)
-        cfg = cfg.replace(mixed_precision=True)
-        logs = os.path.join(tmp, "serve_bf16", "logs")
+        cfg = cfg.replace(mixed_precision=mixed, **{f[2:]: True for f in flags})
+        logs = os.path.join(tmp, "serve_" + "_".join(["bf16"] * mixed + [f[13:] for f in flags]), "logs")
     else:
         cfg = Config(log_dir=os.path.join(tmp, "serve", "run")).replace(
             experiment="TEDM", n_labelled_images=1, seed=SEED,
@@ -419,30 +733,28 @@ def serve(la, ab, tmp, mixed: bool):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    kernel = "prenorm_linear_attention" if mixed else "linear_attention"
-    counter = getattr(ab if mixed else la, kernel)
-    reset_launches(la, ab)
-    latencies, masks, launches = [], [], []
+    reset_launches()
+    latencies, masks, per_request = [], [], []
     for img in imgs:
-        before = counter.launches
+        before = read_launches()
         t0 = time.perf_counter()
         masks.append(predictor.predict(img, "TEDM", 1))  # returns host numpy: synchronised
         latencies.append(1e3 * (time.perf_counter() - t0))
-        launches.append(counter.launches - before)
-    total = counter.launches
-    others = sum(read_launches(la, ab)) - total
+        per_request.append({k: v - before[k] for k, v in read_launches().items()})
+    total = read_launches()
     peak = torch.cuda.max_memory_allocated()
-
+    expected = per_unet_call(mixed, flags)
+    median = statistics.median(latencies[1:])
+    off = "" if flag_off is None else f" (flag-off {flag_off['latency_ms']:.3f} ms in this run)"
     print(f"{label}requests: {N_REQUESTS}; latency ms {[round(x, 3) for x in latencies]} "
-          f"(the first includes loading the checkpoint); median of the rest "
-          f"{statistics.median(latencies[1:]):.3f} ms; {kernel} launches per request {launches}; "
-          f"launches of the other kernels {others}; peak device memory {peak} bytes "
+          f"(the first includes loading the checkpoint); median of the rest {median:.3f} ms{off}; launches per "
+          f"request {({k: v for k, v in per_request[0].items() if v})}; peak device memory {peak} bytes "
           f"({peak / 2**30:.3f} GiB)", flush=True)
-    if launches != [8] * N_REQUESTS or others != 0:
-        fail(f"expected 8 {kernel} launches per {label}request and no other kernel, got {launches} and {others}")
-    unet_dtype = next(iter(predictor._cache.values()))[1].unet.compute_dtype
-    if unet_dtype != (torch.bfloat16 if mixed else torch.float32):
-        fail(f"the {label}checkpoint was served in {unet_dtype}")
+    if any(r != expected for r in per_request):
+        fail(f"expected {expected} launches per {label}request, got {per_request}")
+    unet = next(iter(predictor._cache.values()))[1].unet
+    if unet.compute_dtype != (torch.bfloat16 if mixed else torch.float32):
+        fail(f"the {label}checkpoint was served in {unet.compute_dtype}")
     profile(f"one {label}request", lambda: predictor.predict(imgs[0], "TEDM", 1))
     for m in masks:
         if m.shape != (cfg.img_size, cfg.img_size) or not set(np.unique(m)) <= {0.0, 1.0}:
@@ -461,34 +773,22 @@ def serve(la, ab, tmp, mixed: bool):
     print(f"{label}card vs CPU plain path: max_abs_err {path_err:.3e} (tol {tol}); probabilities in "
           f"[{probs.min():.4f}, {probs.max():.4f}], |p - 0.5| <= {np.abs(probs - 0.5).max():.4f}; "
           f"CPU request {cpu_s:.1f} s", flush=True)
-    if mixed:
-        probs32 = Predictor(logs_root=logs32, device="cuda")._probabilities(imgs[0], "TEDM", 1, noise=noise)
-        print(f"bf16 vs fp32 from the same weights and noise (a report, not a gate): probabilities "
-              f"max_abs_diff {float(np.abs(probs - probs32).max()):.3e}, mean "
-              f"{float(np.abs(probs - probs32).mean()):.3e}; masks differ at "
-              f"{int(((probs > 0.5) != (probs32 > 0.5)).sum())} of {probs.size} pixels", flush=True)
+    if flag_off is not None:
+        off = flag_off["probs"]
+        print(f"{label}vs the flag-off {'bf16 ' if mixed else ''}request from the same weights and noise (a report, "
+              f"not a gate): probabilities max_abs_diff {float(np.abs(probs - off).max()):.3e}, mean "
+              f"{float(np.abs(probs - off).mean()):.3e}; masks differ at "
+              f"{int(((probs > 0.5) != (off > 0.5)).sum())} of {probs.size} pixels", flush=True)
     if not path_err <= tol:
         fail(f"{label}card and CPU plain path disagree: {path_err}")
-    return total
+    return {"launches": total, "probs": probs, "latency_ms": median}
 
 
-def reset_launches(la, ab) -> None:
-    la.linear_attention.launches = la.linear_attention.backward_launches = 0
-    ab.prenorm_linear_attention.launches = 0
-
-
-def read_launches(la, ab) -> tuple:
-    """(linear-attention forward, its backward, fused block) launches."""
-    return (la.linear_attention.launches, la.linear_attention.backward_launches,
-            ab.prenorm_linear_attention.launches)
-
-
-def train_backbone(la, ab, tmp, mixed: bool):
+def train_backbone(tmp, mixed: bool):
     """Phases 5 and 9: path (a) through the training entry point. fp32: with
     one validation at the last step (its 1000-step sample grid); bf16
     (``mixed``): without validation, a checkpoint at the last step. Returns
-    (checkpoint, launches of the linear-attention forward, of its backward,
-    of the fused block)."""
+    the checkpoint, the launches and the median step time."""
     from tedm_tpu_torch.config import config_from_args
     from tedm_tpu_torch.train import main as train_main
 
@@ -501,12 +801,12 @@ def train_backbone(la, ab, tmp, mixed: bool):
     cfg = config_from_args(argv)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(la, ab)
+    reset_launches()
     t0 = time.perf_counter()
     train_main(argv, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    fwd, bwd, fused = read_launches(la, ab)
+    counts = read_launches()
     peak = torch.cuda.max_memory_allocated()
 
     recs = read_metrics(cfg.log_dir)
@@ -517,23 +817,22 @@ def train_backbone(la, ab, tmp, mixed: bool):
     # call each) and the sample grid's T UNet calls, 8 linear attentions per call
     n_t = len(range(0, cfg.timesteps, max(cfg.timesteps // cfg.val_steps, 1)))
     val_fwd = 0 if mixed else 8 * (math.ceil(n_t / 8) + cfg.timesteps)
-    per_step = tuple(x / max(len(steps), 1) for x in (fwd - val_fwd, bwd, fused))
+    per_step = {k: (v - (val_fwd if k == "linear_attention" else 0)) / max(len(steps), 1) for k, v in counts.items()}
     losses = [r["train/loss"] for r in steps]
+    median = statistics.median(step_ms[1:])
     print(f"{label}: {len(steps)} steps at batch {cfg.batch_size}, {cfg.img_size}^2, "
           f"{wall:.1f} s wall{'' if mixed else ' with validation'}; step ms {[round(x, 1) for x in step_ms]}; "
-          f"median of steps 2-{len(steps)} {statistics.median(step_ms[1:]):.3f} ms = "
-          f"{1e3 * cfg.batch_size / statistics.median(step_ms[1:]):.2f} imgs/s; "
+          f"median of steps 2-{len(steps)} {median:.3f} ms = {1e3 * cfg.batch_size / median:.2f} imgs/s; "
           f"losses {losses[0]:.4f} .. {losses[-1]:.4f}; val loss {val}; "
           f"peak device memory {peak} bytes ({peak / 2**30:.3f} GiB"
-          f"{'' if mixed else ', validation included'}); launches: linear_attention forward {fwd} "
-          f"({val_fwd} in validation), backward {bwd}, prenorm_linear_attention {fused}; per step "
-          f"{per_step}", flush=True)
+          f"{'' if mixed else ', validation included'}); launches {counts} ({val_fwd} linear_attention "
+          f"in validation); per step {per_step}", flush=True)
     if len(steps) != A_STEPS or not all(math.isfinite(x) for x in losses + val) or len(val) != (0 if mixed else 1):
         fail(f"{label}: {len(steps)} steps, losses {losses}, val {val}")
-    if per_step != ((0, 0, 8) if mixed else (8, 8, 0)):
-        fail(f"{label}: expected 8 launches a step of the path's kernels and none of the others, got {per_step}")
+    if per_step != per_unet_call(mixed, backward=True):
+        fail(f"{label}: expected {per_unet_call(mixed, backward=True)} launches a step, got {per_step}")
     if mixed:
-        return os.path.join(cfg.log_dir, f"step_{A_STEPS}"), fwd, bwd, fused
+        return os.path.join(cfg.log_dir, f"step_{A_STEPS}"), counts, median
     if not os.path.isfile(os.path.join(cfg.log_dir, "images", f"val_samples_{A_STEPS}.png")):
         fail("path (a) wrote no sample grid")
 
@@ -550,13 +849,53 @@ def train_backbone(la, ab, tmp, mixed: bool):
     batches.close()
     print(f"path (a) loader alone ({cfg.num_workers} threads): {1e3 * dt / 20:.3f} ms a batch of "
           f"{cfg.batch_size}, {20 * cfg.batch_size / dt:.1f} imgs/s", flush=True)
-    return os.path.join(cfg.log_dir, "best"), fwd, bwd, fused
+    return os.path.join(cfg.log_dir, "best"), counts, median
 
 
-def step_card_vs_cpu(mixed: bool):
-    """Phases 6 and 10: a training step at batch 16 under the profiler, then
-    one at batch 2 on the card and on the CPU from the same weights, t and
-    noise; in fp32, or in bf16 with ``mixed``."""
+def train_opt_in(tmp, mixed: bool, flag_off_ms: float):
+    """Phase 13: backbone steps at batch 16 through the training entry point
+    with ``--use_pallas_resblock --use_pallas_flash``, without validation.
+    Returns the launches."""
+    from tedm_tpu_torch.config import config_from_args
+    from tedm_tpu_torch.train import main as train_main
+
+    flags = ("--use_pallas_resblock", "--use_pallas_flash")
+    label = f"{label_of(mixed, flags)}path (a)"
+    argv = ["--experiment", "img_only", "--synthetic_data", "--ema_decay", "0.999", "--max_steps", str(OPT_IN_STEPS),
+            "--log_freq", "1", "--seed", str(SEED), "--val_freq", str(10 * OPT_IN_STEPS),
+            "--log_dir", os.path.join(tmp, "train_opt_in_bf16" if mixed else "train_opt_in", "run_a"),
+            *flags] + (["--mixed_precision"] if mixed else [])
+    cfg = config_from_args(argv)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    train_main(argv, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    steps = [r for r in read_metrics(cfg.log_dir) if "train/loss" in r]
+    step_ms = [1e3 * cfg.batch_size / r["train/imgs_per_sec"] for r in steps]
+    losses = [r["train/loss"] for r in steps]
+    per_step = {k: v / max(len(steps), 1) for k, v in counts.items()}
+    median = statistics.median(step_ms[1:])
+    print(f"{label}: {len(steps)} steps at batch {cfg.batch_size}, {wall:.1f} s wall; step ms "
+          f"{[round(x, 1) for x in step_ms]}; median of steps 2-{len(steps)} {median:.3f} ms = "
+          f"{1e3 * cfg.batch_size / median:.2f} imgs/s (flag-off {flag_off_ms:.3f} ms in this run); losses "
+          f"{losses[0]:.4f} .. {losses[-1]:.4f}; peak device memory {peak} bytes ({peak / 2**30:.3f} GiB); "
+          f"launches per step {({k: v for k, v in per_step.items() if v})}", flush=True)
+    if len(steps) != OPT_IN_STEPS or not all(math.isfinite(x) for x in losses):
+        fail(f"{label}: {len(steps)} steps, losses {losses}")
+    if per_step != per_unet_call(mixed, flags, backward=True):
+        fail(f"{label}: expected {per_unet_call(mixed, flags, backward=True)} launches a step, got {per_step}")
+    return counts
+
+
+def step_card_vs_cpu(mixed: bool, flags=()):
+    """Phases 6, 10 and 13: a training step at batch 16 under the profiler,
+    then one at batch 2 on the card and on the CPU from the same weights, t
+    and noise; in fp32, or in bf16 with ``mixed``; with the opt-in ``flags``."""
     from tedm_tpu_torch.config import config_from_args
     from tedm_tpu_torch.data.datasets import SyntheticCXRDataset
     from tedm_tpu_torch.ops.schedules import make_schedule
@@ -564,9 +903,9 @@ def step_card_vs_cpu(mixed: bool):
     from tedm_tpu_torch.trainers.common import make_optimizer, to_nchw
 
     cfg = config_from_args(["--experiment", "img_only", "--synthetic_data", "--seed", str(SEED),
-                            "--log_dir", os.path.join(tempfile.gettempdir(), "unused")]
+                            "--log_dir", os.path.join(tempfile.gettempdir(), "unused"), *flags]
                            + (["--mixed_precision"] if mixed else []))
-    label = "bf16 " if mixed else ""
+    label = label_of(mixed, flags)
     data = SyntheticCXRDataset("cxr_train", 16, cfg.img_size, labelled=False, seed=SEED)
     x = np.stack([data[i] for i in range(16)])
     gen = torch.Generator().manual_seed(SEED)
@@ -605,42 +944,41 @@ def step_card_vs_cpu(mixed: bool):
         fail(f"the {label}training step on the card disagrees with the CPU plain path")
 
 
-def train_head(la, ab, tmp, backbone, mixed: bool):
-    """Phases 7 and 11: path (b) on a backbone of path (a), then one request
-    served from its best checkpoint; in fp32, or in bf16 with ``mixed``.
-    Returns the launches of its training run: of the linear-attention
-    forward in fp32, of the fused block in bf16."""
+def train_head(tmp, backbone, mixed: bool, flags=(), steps: int = B_STEPS):
+    """Phases 7, 11 and 13: path (b) on a backbone of path (a), then one
+    request served from its best checkpoint; in fp32, or in bf16 with
+    ``mixed``; with the opt-in ``flags``. Returns the launches of its
+    training run."""
     from tedm_tpu_torch.config import config_from_args
     from tedm_tpu_torch.serve.app import Predictor
     from tedm_tpu_torch.train import main as train_main
 
-    label = "bf16 path (b)" if mixed else "path (b)"
-    logs = os.path.join(tmp, "train_bf16" if mixed else "train", "logs")
+    label = f"{label_of(mixed, flags)}path (b)"
+    logs = os.path.join(tmp, "train" + "".join("_" + t for t in ["bf16"] * mixed + [f[13:] for f in flags]), "logs")
     argv = ["--experiment", "TEDM", "--n_labelled_images", "1", "--synthetic_data",
-            "--saved_diffusion_model", backbone, "--max_steps", str(B_STEPS),
-            "--val_freq", str(B_STEPS), "--log_freq", "1", "--seed", str(SEED),
-            "--log_dir", os.path.join(logs, "run_b")] + (["--mixed_precision"] if mixed else [])
+            "--saved_diffusion_model", backbone, "--max_steps", str(steps),
+            "--val_freq", str(steps), "--log_freq", "1", "--seed", str(SEED),
+            "--log_dir", os.path.join(logs, "run_b"), *flags] + (["--mixed_precision"] if mixed else [])
     cfg = config_from_args(argv)
-    reset_launches(la, ab)
+    reset_launches()
     t0 = time.perf_counter()
     train_main(argv, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    fwd, bwd, fused = read_launches(la, ab)
+    counts = read_launches()
 
     recs = read_metrics(cfg.log_dir)
-    steps = [r for r in recs if "train/loss" in r]
+    done = [r for r in recs if "train/loss" in r]
     val = [r for r in recs if "val/dice" in r]
-    step_ms = [1e3 * r["train/imgs_per_sec"] ** -1 for r in steps]
-    print(f"{label}: {len(steps)} steps of 1 image x 8 timesteps, {wall:.1f} s wall with "
+    step_ms = [1e3 * r["train/imgs_per_sec"] ** -1 for r in done]
+    print(f"{label}: {len(done)} steps of 1 image x 8 timesteps, {wall:.1f} s wall with "
           f"validation; median step {statistics.median(step_ms[1:]):.3f} ms; losses "
-          f"{steps[0]['train/loss']:.4f} .. {steps[-1]['train/loss']:.4f}; val {val}; "
-          f"linear_attention launches: forward {fwd}, backward {bwd}; prenorm_linear_attention "
-          f"launches {fused}", flush=True)
+          f"{done[0]['train/loss']:.4f} .. {done[-1]['train/loss']:.4f}; val {val}; "
+          f"launches {({k: v for k, v in counts.items() if v})}", flush=True)
     # one UNet call of 8 timesteps per step and per val batch (25 images, 2 batches)
-    calls = 8 * (B_STEPS + 2)
-    if len(steps) != B_STEPS or len(val) != 1 or (fwd, bwd, fused) != ((0, 0, calls) if mixed else (calls, 0, 0)):
-        fail(f"{label}: {len(steps)} steps, val {val}, launches {fwd} / {bwd} / {fused}")
+    expected = {k: v * (steps + 2) for k, v in per_unet_call(mixed, flags).items()}
+    if len(done) != steps or len(val) != 1 or counts != expected:
+        fail(f"{label}: {len(done)} steps, val {val}, launches {counts}, expected {expected}")
     if not all(math.isfinite(v) for v in val[0].values()):
         fail(f"{label}: val metrics {val[0]}")
 
@@ -649,7 +987,18 @@ def train_head(la, ab, tmp, backbone, mixed: bool):
     if mask.shape != (cfg.img_size, cfg.img_size) or not set(np.unique(mask)) <= {0.0, 1.0}:
         fail(f"{label}: served mask of shape {mask.shape}")
     print(f"{label}: served one request from {cfg.log_dir}/best, mask foreground {mask.mean():.4f}")
-    return fused if mixed else fwd
+    return counts
+
+
+def add_paths(*runs) -> dict:
+    """Each kernel's launches summed over the named runs of its main path:
+    {kernel: {path: launches}}, paths with no launch left out."""
+    out = {k: {} for k in KERNELS}
+    for path, counts in runs:
+        for k, v in counts.items():
+            if v:
+                out[k][path] = v
+    return out
 
 
 def main() -> None:
@@ -658,7 +1007,10 @@ def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tedm_tpu_torch.kernels import _build
     from tedm_tpu_torch.kernels import attn_block as ab
+    from tedm_tpu_torch.kernels import flash_attention as fa
+    from tedm_tpu_torch.kernels import groupnorm as gn
     from tedm_tpu_torch.kernels import linear_attention as la
+    from tedm_tpu_torch.kernels import resblock as rb
 
     with Phase("1. environment"):
         smi = subprocess.run(
@@ -686,32 +1038,72 @@ def main() -> None:
         fwd_rows = check_forward(la, gen, scale)
         bwd_rows = check_backward(la, gen, scale)
         block_rows = check_block(ab, gen)
+        gn_rows = check_groupnorm(gn, gen)
+        rb_rows = check_resblock(rb, gen)
+        fa_rows = check_flash(fa, gen)
 
     with tempfile.TemporaryDirectory() as tmp:
         with Phase("4. serving path"):
-            serve_fwd = serve(la, ab, tmp, mixed=False)
+            served = serve(tmp, mixed=False)
         with Phase("5. training path (a): backbone"):
-            backbone, a_fwd, a_bwd, _ = train_backbone(la, ab, tmp, mixed=False)
+            backbone, a32, a32_ms = train_backbone(tmp, mixed=False)
         with Phase("6. training step: profile, card vs CPU"):
             step_card_vs_cpu(mixed=False)
         with Phase("7. training path (b): TEDM head"):
-            b_fwd = train_head(la, ab, tmp, backbone, mixed=False)
+            b32 = train_head(tmp, backbone, mixed=False)
         with Phase("8. bf16 serving path"):
-            serve_fused = serve(la, ab, tmp, mixed=True)
+            served16 = serve(tmp, mixed=True)
         with Phase("9. bf16 training path (a): backbone"):
-            backbone16, _, _, a_fused = train_backbone(la, ab, tmp, mixed=True)
+            backbone16, a16, a16_ms = train_backbone(tmp, mixed=True)
         with Phase("10. bf16 training step: profile, card vs CPU"):
             step_card_vs_cpu(mixed=True)
         with Phase("11. bf16 training path (b): TEDM head"):
-            b_fused = train_head(la, ab, tmp, backbone16, mixed=True)
+            b16 = train_head(tmp, backbone16, mixed=True)
+        opt_in = []
+        with Phase("12. opt-in serving"):
+            for flags in (("--use_pallas_groupnorm", "--use_pallas_flash"), ("--use_pallas_resblock", "--use_pallas_flash")):
+                for mixed, off in ((False, served), (True, served16)):
+                    run = serve(tmp, mixed, flags, flag_off=off)
+                    opt_in.append((f"{label_of(mixed, flags)}serving", run["launches"]))
+        with Phase("13. opt-in training"):
+            flags = ("--use_pallas_resblock", "--use_pallas_flash")
+            for mixed, off_ms in ((False, a32_ms), (True, a16_ms)):
+                opt_in.append((f"{label_of(mixed, flags)}training (a)", train_opt_in(tmp, mixed, off_ms)))
+                step_card_vs_cpu(mixed, flags)
+            opt_in.append(("--use_pallas_groupnorm training (b)",
+                           train_head(tmp, backbone, False, ("--use_pallas_groupnorm",), HEAD_STEPS)))
+
+    paths = add_paths(("serving", served["launches"]), ("training (a)", a32), ("training (b)", b32),
+                      ("bf16 serving", served16["launches"]), ("bf16 training (a)", a16),
+                      ("bf16 training (b)", b16), *opt_in)
+    bounded = lambda rows: "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations"
+    gn_req = [(s, torch.float32, f) for s, f in gn_calls(8)]
+    rb_req = [(s, torch.float32) for s in rb_shapes(8)]
+
+    def entry(name, source, replaces, rows, request, step, **extra):
+        """A kernel's line: times and bound of one serving request's calls in
+        fp32 (batch 8), and in bf16 and of a training step (batch 16) beside;
+        ``library_ms`` where the rows time a library call, else None."""
+        as16 = lambda keys: [tuple(torch.bfloat16 if e is torch.float32 else e for e in k) for k in keys]
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(paths[name].values()), "launches_by_path": paths[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values() if r["dtype"] == "fp32"),
+            "max_abs_err_bf16": max(r["max_abs_err"] for r in rows.values() if r["dtype"] == "bf16"),
+            "min_control_err": min(r["min_control_err"] for r in rows.values()),
+            "library_ms": None, **calls_sum(rows, request), "bound_by": bounded([rows[k] for k in request]),
+            "bf16": calls_sum(rows, as16(request)), "train_step": calls_sum(rows, step),
+            "train_step_bf16": calls_sum(rows, as16(step)),
+            **extra,
+        }
 
     kernels = [{
         "name": "linear_attention",
         "route": "cuda",
         "source": "tedm_tpu_torch/kernels/csrc/linear_attention.cu",
         "replaces": "tedm_tpu/ops/pallas/linear_attention.py:122",
-        "launches": serve_fwd + a_fwd + b_fwd,
-        "launches_by_path": {"serving": serve_fwd, "training (a)": a_fwd, "training (b)": b_fwd},
+        "launches": sum(paths["linear_attention"].values()),
+        "launches_by_path": paths["linear_attention"],
         "max_abs_err": max(r["max_abs_err"] for r in fwd_rows.values()),
         # times and bound of one serving request's 8 calls
         **calls_sum(fwd_rows, 2 * SERVE_SHAPES),  # each shape down and up
@@ -724,8 +1116,8 @@ def main() -> None:
         "route": "cuda",
         "source": "tedm_tpu_torch/kernels/csrc/linear_attention.cu",
         "replaces": "tedm_tpu/ops/pallas/linear_attention.py:141",
-        "launches": a_bwd,
-        "launches_by_path": {"training (a)": a_bwd},
+        "launches": sum(paths["linear_attention_backward"].values()),
+        "launches_by_path": paths["linear_attention_backward"],
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows.values()),
         "max_rel_err": max(r["max_rel_err"] for r in bwd_rows.values()),
         # times and bound of one training step's 8 calls
@@ -738,9 +1130,8 @@ def main() -> None:
         "route": "cuda",
         "source": "tedm_tpu_torch/kernels/csrc/attn_block.cu",
         "replaces": "tedm_tpu/ops/pallas/attn_block.py:136",
-        "launches": serve_fused + a_fused + b_fused,
-        "launches_by_path": {"bf16 serving": serve_fused, "bf16 training (a)": a_fused,
-                             "bf16 training (b)": b_fused},
+        "launches": sum(paths["prenorm_linear_attention"].values()),
+        "launches_by_path": paths["prenorm_linear_attention"],
         "max_abs_err": max(r["max_abs_err"] for r in block_rows.values()),
         # the least that a control (the plain version with a stage altered) read
         "min_control_err": min(r["min_control_err"] for r in block_rows.values()),
@@ -751,7 +1142,17 @@ def main() -> None:
         "library_ms": None,  # no single PyTorch call computes the block
         "train_step": calls_sum(block_rows, block_shapes(16)),
         "per_shape": [r for r in block_rows.values() if "ms" in r],
-    }]
+    },
+        # no single PyTorch call computes GroupNorm with FiLM, or the block
+        entry(GN, "tedm_tpu_torch/kernels/csrc/groupnorm.cu", "tedm_tpu/ops/pallas/groupnorm.py:133", gn_rows,
+              gn_req, [(s, torch.float32, f) for s, f in gn_calls(16)]),
+        entry(RB, "tedm_tpu_torch/kernels/csrc/resblock.cu", "tedm_tpu/ops/pallas/resblock.py:199", rb_rows,
+              rb_req, [(s, torch.float32) for s in rb_shapes(16)]),
+        # the mid attention, one call; library_ms: F.scaled_dot_product_attention
+        # (scale=16) on pre-normalised q and k
+        entry(FA, "tedm_tpu_torch/kernels/csrc/flash_attention.cu", "tedm_tpu/ops/pallas/flash_attention.py:114",
+              fa_rows, [(8, 256, torch.float32)], [(16, 256, torch.float32)], per_shape=list(fa_rows.values())),
+    ]
     for kern in kernels:
         if kern["launches"] == 0:
             fail(f"{kern['name']} was never launched on the main path")

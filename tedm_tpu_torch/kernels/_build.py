@@ -3,9 +3,10 @@
 Each source is compiled on its own by ``nvcc`` for Hopper (``sm_90a``) into
 a library with a plain C interface, loaded with ``ctypes``. Nothing here
 includes PyTorch's headers, so a build takes seconds. Libraries land in
-``tedm_tpu_torch/_build/`` under a name that carries a hash of the source
-and the flags, so an edited source is rebuilt and an unchanged one is
-reused. The build runs at first use, never at import.
+``tedm_tpu_torch/_build/`` under a name that carries a hash of the source,
+of every shared header ``csrc/*.cuh`` and of the flags, so an edited source
+or header is rebuilt and an unchanged one is reused. The build runs at
+first use, never at import.
 """
 
 from __future__ import annotations
@@ -36,10 +37,14 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Path of the built library for ``csrc/<name>.cu`` at its current content."""
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    """Path of the built library for ``csrc/<name>.cu`` at its current
+    content and that of every ``csrc/*.cuh`` it may include."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for part in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, part), "rb") as f:
+            h.update(part.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(name: str) -> str:

@@ -10,7 +10,9 @@ Rates are NVIDIA's data-sheet figures for the H100 SXM at its 700 W limit.
     python -m tedm_tpu_torch.kernels.bounds
 
 prints the bound of each kernel's calls in one serving request (batch 8:
-one image at 8 timesteps) and in one training step (batch 16).
+one image at 8 timesteps) and in one training step (batch 16), in fp32 and,
+for the kernels that run in both dtypes, in bf16. ``chip_smoke.py`` takes
+the per-call functions for the shapes it times.
 """
 
 from __future__ import annotations
@@ -50,6 +52,30 @@ def unet_stages() -> Tuple[List[Tuple[int, int]], List[Tuple[int, int, int]]]:
     return attn, res
 
 
+def groupnorm_call(batch: int, c: int, hw: int, itemsize: int = 4) -> Tuple[float, float, float]:
+    """(bytes, operations, rate) of one GroupNorm+FiLM+SiLU over (batch, c,
+    hw pixels): x read and out written in their dtype; about 10 operations
+    an element on the CUDA cores."""
+    return 2 * itemsize * batch * c * hw, 10 * batch * c * hw, FP32_FLOPS_PER_S
+
+
+def resblock_call(batch: int, c_in: int, c_out: int, hw: int, itemsize: int = 4) -> Tuple[float, float, float]:
+    """(bytes, operations, rate) of one whole ResnetBlock: x read and out
+    written in their dtype, the fp32 weights read; the two 3x3 convs and
+    the 1x1 res conv where the width changes, on the CUDA cores in fp32 and
+    on the tensor cores in bf16."""
+    weights = 9 * c_in * c_out + 9 * c_out * c_out + (c_in * c_out if c_in != c_out else 0)
+    return (itemsize * batch * (c_in + c_out) * hw + 4 * weights, 2 * batch * hw * weights,
+            BF16_FLOPS_PER_S if itemsize == 2 else FP32_FLOPS_PER_S)
+
+
+def flash_call(batch: int, n: int, itemsize: int = 4) -> Tuple[float, float, float]:
+    """(bytes, operations, rate) of one cosine attention over (batch, 4, 32,
+    n): q, k, v read and out written in their dtype; QK^T and PV in fp32, as
+    the JAX kernel runs them at Precision.HIGHEST."""
+    return 4 * itemsize * batch * HEADS * DIM_HEAD * n, 4 * batch * HEADS * n * n * DIM_HEAD, FP32_FLOPS_PER_S
+
+
 def kernel_bounds(batch: int) -> Dict[str, Dict]:
     """Each kernel's bound summed over its calls in one forward (and, for
     the linear-attention backward, one backward) at ``batch``."""
@@ -77,21 +103,16 @@ def kernel_bounds(batch: int) -> Dict[str, Dict]:
          2 * batch * s * s * (3 * hidden * c + hidden * c) + 4 * batch * hidden * DIM_HEAD * s * s,
          BF16_FLOPS_PER_S)
         for c, s in attn])
-    # 3: GroupNorm + FiLM + SiLU, x read and out written (fp32); about 10
-    # operations an element; two per ResnetBlock
-    add("fused_group_norm_film_silu", [(2 * 4 * batch * c_out * s * s, 10 * batch * c_out * s * s)
-                                       for _, c_out, s in res for _ in range(2)])
-    # 4: the whole ResnetBlock, x read and out written, weights read (fp32);
-    # two 3x3 convs and the 1x1 res conv where the width changes
-    add("fused_resnet_block", [
-        (4 * (batch * (c_in + c_out) * s * s + 9 * c_in * c_out + 9 * c_out * c_out
-              + (c_in * c_out if c_in != c_out else 0)),
-         2 * batch * s * s * (9 * c_in * c_out + 9 * c_out * c_out + (c_in * c_out if c_in != c_out else 0)))
-        for c_in, c_out, s in res])
-    # 5: the mid attention: q, k, v read and out written (fp32); QK^T and PV
-    side = SIZE >> (len(MULTS) - 1)
-    n = side * side
-    add("flash_cosine_attention", [(4 * 4 * batch * hidden * n, 4 * batch * HEADS * n * n * DIM_HEAD)])
+    mid = SIZE >> (len(MULTS) - 1)
+    for suffix, itemsize in (("", 4), (" (bf16)", 2)):
+        # 3: two per ResnetBlock, of its output width
+        add("fused_group_norm_film_silu" + suffix,
+            [groupnorm_call(batch, c_out, s * s, itemsize) for _, c_out, s in res for _ in range(2)])
+        # 4: the whole ResnetBlock; its bound is its convolutions' arithmetic
+        add("fused_resnet_block" + suffix, [resblock_call(batch, c_in, c_out, s * s, itemsize)
+                                            for c_in, c_out, s in res])
+        # 5: the mid attention
+        add("flash_cosine_attention" + suffix, [flash_call(batch, mid * mid, itemsize)])
     return out
 
 

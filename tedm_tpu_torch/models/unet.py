@@ -28,6 +28,15 @@ Residual(PreNorm(LinearAttention)) runs as one block,
 ``kernels.attn_block.prenorm_linear_attention`` (the fused CUDA kernel on
 the card), as the JAX package fuses it in bf16. The mid Attention stays
 plain PyTorch, as the JAX default runs it outside Pallas.
+
+Three opt-in kernels follow the JAX package's ``use_pallas_*`` switches
+(tedm_tpu/models/unet.py:520-537), with the same parameters, so a
+``state_dict`` loads either way: ``fused_groupnorm`` runs every
+GroupNorm+FiLM+SiLU through ``kernels.groupnorm.fused_group_norm_film_silu``;
+``fused_resblock`` runs every ResnetBlock as one call of
+``kernels.resblock.fused_resnet_block`` (and then no GroupNorm kernel, as
+JAX's ResnetBlock returns before its Blocks); ``flash_attention`` runs the
+mid Attention through ``kernels.flash_attention.flash_cosine_attention``.
 """
 
 from __future__ import annotations
@@ -40,8 +49,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from tedm_tpu_torch.kernels.attn_block import prenorm_linear_attention
-from tedm_tpu_torch.kernels.groupnorm import group_norm_film_silu_reference
+from tedm_tpu_torch.kernels.flash_attention import flash_cosine_attention
+from tedm_tpu_torch.kernels.groupnorm import fused_group_norm_film_silu, group_norm_film_silu_reference
 from tedm_tpu_torch.kernels.linear_attention import linear_attention
+from tedm_tpu_torch.kernels.resblock import fused_resnet_block
 from tedm_tpu_torch.ops.resize import nearest_upsample_2x
 
 
@@ -112,11 +123,13 @@ class TimeMLP(nn.Sequential):
 
 
 class GroupNormFilmSiLU(nn.Module):
-    """GroupNorm(groups) with affine ``weight``/``bias`` -> optional FiLM -> SiLU."""
+    """GroupNorm(groups) with affine ``weight``/``bias`` -> optional FiLM -> SiLU;
+    through the GroupNorm kernel when ``fused``."""
 
-    def __init__(self, dim: int, groups: int = 8):
+    def __init__(self, dim: int, groups: int = 8, fused: bool = False):
         super().__init__()
         self.groups = groups
+        self.fused = fused
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
@@ -124,19 +137,18 @@ class GroupNormFilmSiLU(nn.Module):
         scale = shift = None
         if scale_shift is not None:
             scale, shift = scale_shift
-        return group_norm_film_silu_reference(
-            x, self.weight, self.bias, scale, shift, groups=self.groups, eps=1e-5
-        )
+        fn = fused_group_norm_film_silu if self.fused else group_norm_film_silu_reference
+        return fn(x, self.weight, self.bias, scale, shift, groups=self.groups, eps=1e-5)
 
 
 class Block(nn.Module):
     """Conv3x3 -> GroupNorm(8) -> optional FiLM x*(scale+1)+shift -> SiLU
     (reference: models/unet_model.py:119-135)."""
 
-    def __init__(self, dim: int, dim_out: int, groups: int = 8):
+    def __init__(self, dim: int, dim_out: int, groups: int = 8, fused_groupnorm: bool = False):
         super().__init__()
         self.proj = Conv2d(dim, dim_out, 3, padding=1)
-        self.norm = GroupNormFilmSiLU(dim_out, groups)
+        self.norm = GroupNormFilmSiLU(dim_out, groups, fused_groupnorm)
 
     def forward(self, x, scale_shift=None):
         return self.norm(self.proj(x), scale_shift)
@@ -145,23 +157,40 @@ class Block(nn.Module):
 class ResnetBlock(nn.Module):
     """Two Blocks, the first FiLM-conditioned on the time embedding, plus a
     residual 1x1 projection when the width changes
-    (reference: models/unet_model.py:138-175)."""
+    (reference: models/unet_model.py:138-175). With ``fused_resblock`` the
+    whole block is one call of the ResnetBlock kernel on the same
+    parameters, its sum in fp32 cast once (tedm_tpu/models/unet.py:207-227)."""
 
-    def __init__(self, dim: int, dim_out: int, time_emb_dim: Optional[int] = None, groups: int = 8):
+    compute_dtype = torch.float32
+
+    def __init__(
+        self, dim: int, dim_out: int, time_emb_dim: Optional[int] = None, groups: int = 8,
+        fused_groupnorm: bool = False, fused_resblock: bool = False,
+    ):
         super().__init__()
+        self.groups = groups
+        self.fused = fused_resblock
         self.time_mlp = (
             nn.Sequential(nn.SiLU(), Linear(time_emb_dim, dim_out * 2))
             if time_emb_dim is not None
             else None
         )
-        self.block1 = Block(dim, dim_out, groups)
-        self.block2 = Block(dim_out, dim_out, groups)
+        self.block1 = Block(dim, dim_out, groups, fused_groupnorm)
+        self.block2 = Block(dim_out, dim_out, groups, fused_groupnorm)
         self.res_conv = Conv2d(dim, dim_out, 1) if dim != dim_out else nn.Identity()
 
     def forward(self, x, time_emb: Optional[torch.Tensor] = None):
         scale_shift = None
         if self.time_mlp is not None and time_emb is not None:
             scale_shift = self.time_mlp(time_emb).chunk(2, dim=1)  # two (B, C)
+        if self.fused:
+            (p1, n1), (p2, n2), res = (self.block1.proj, self.block1.norm), (self.block2.proj, self.block2.norm), self.res_conv
+            scale, shift = scale_shift if scale_shift is not None else (None, None)
+            wres, bres = (res.weight, res.bias) if isinstance(res, Conv2d) else (None, None)
+            return fused_resnet_block(
+                x.to(self.compute_dtype), p1.weight, p1.bias, n1.weight, n1.bias, scale, shift,
+                p2.weight, p2.bias, n2.weight, n2.bias, wres, bres, groups=self.groups,
+            )
         h = self.block1(x, scale_shift)
         h = self.block2(h)
         return h + self.res_conv(x)
@@ -195,26 +224,28 @@ class Attention(nn.Module):
     """Full attention with cosine-similarity logits at fixed scale 16
     (reference: models/unet_model.py:213-241). q and k are l2-normalised over
     the SPATIAL axis, the last axis of the (B, heads, d, N) layout
-    (tedm_tpu/models/unet.py:430-435)."""
+    (tedm_tpu/models/unet.py:430-435). fp32 math; with ``flash`` through the
+    flash kernel on the qkv conv's chunks (output in their dtype)."""
 
-    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, scale: float = 16.0):
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, scale: float = 16.0, flash: bool = False):
         super().__init__()
         self.heads, self.dim_head, self.scale = heads, dim_head, scale
+        self.flash = flash
         hidden = heads * dim_head
         self.to_qkv = Conv2d(dim, hidden * 3, 1, bias=False)
         self.to_out = Conv2d(hidden, dim, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, _, h, w = x.shape
-        q, k, v = (
-            t.reshape(b, self.heads, self.dim_head, h * w).float()
-            for t in self.to_qkv(x).chunk(3, dim=1)
-        )
-        q = F.normalize(q, dim=-1, eps=1e-12)
-        k = F.normalize(k, dim=-1, eps=1e-12)
-        sim = torch.einsum("bhdi,bhdj->bhij", q, k) * self.scale
-        attn = sim.softmax(dim=-1)
-        out = torch.einsum("bhij,bhdj->bhdi", attn, v)
+        # 'b (h c) x y -> b h c (x y)': views, contiguous within a batch element
+        q, k, v = (t.reshape(b, self.heads, self.dim_head, h * w) for t in self.to_qkv(x).chunk(3, dim=1))
+        if self.flash:
+            out = flash_cosine_attention(q, k, v, self.scale)
+        else:
+            q = F.normalize(q.float(), dim=-1, eps=1e-12)
+            k = F.normalize(k.float(), dim=-1, eps=1e-12)
+            attn = (torch.einsum("bhdi,bhdj->bhij", q, k) * self.scale).softmax(dim=-1)
+            out = torch.einsum("bhij,bhdj->bhdi", attn, v.float())
         return self.to_out(out.reshape(b, -1, h, w).to(x.dtype))
 
 
@@ -283,16 +314,21 @@ class Unet(nn.Module):
         resnet_block_groups: int = 8,
         in_channels: Optional[int] = None,
         dtype: torch.dtype = torch.float32,
+        fused_groupnorm: bool = False,
+        fused_resblock: bool = False,
+        flash_attention: bool = False,
     ):
         """``channels`` is the width of the output (and by default of the
         input); ``in_channels`` widens the input for the conditional modes,
         whose input is the noised x concatenated with the condition.
-        ``dtype`` is the compute dtype (bf16 under ``--mixed_precision``)."""
+        ``dtype`` is the compute dtype (bf16 under ``--mixed_precision``).
+        The last three switch on the opt-in kernels (module docstring)."""
         super().__init__()
         dims = [dim] + [dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
         time_dim = dim * 4
         g = resnet_block_groups
+        kernels = dict(fused_groupnorm=fused_groupnorm, fused_resblock=fused_resblock)
 
         self.init_conv = Conv2d(in_channels or channels, dim, 7, padding=3)
         self.time_mlp = TimeMLP(dim, time_dim)
@@ -301,28 +337,28 @@ class Unet(nn.Module):
         for ind, (dim_in, dim_out) in enumerate(in_out):
             is_last = ind == len(in_out) - 1
             self.downs.append(nn.ModuleList([
-                ResnetBlock(dim_in, dim_in, time_dim, g),
-                ResnetBlock(dim_in, dim_in, time_dim, g),
+                ResnetBlock(dim_in, dim_in, time_dim, g, **kernels),
+                ResnetBlock(dim_in, dim_in, time_dim, g, **kernels),
                 PreNormAttn(dim_in, LinearAttention(dim_in)),
                 Downsample(dim_in, dim_out) if not is_last else Conv2d(dim_in, dim_out, 3, padding=1),
             ]))
 
         mid_dim = dims[-1]
-        self.mid_block1 = ResnetBlock(mid_dim, mid_dim, time_dim, g)
-        self.mid_attn = PreNormAttn(mid_dim, Attention(mid_dim))
-        self.mid_block2 = ResnetBlock(mid_dim, mid_dim, time_dim, g)
+        self.mid_block1 = ResnetBlock(mid_dim, mid_dim, time_dim, g, **kernels)
+        self.mid_attn = PreNormAttn(mid_dim, Attention(mid_dim, flash=flash_attention))
+        self.mid_block2 = ResnetBlock(mid_dim, mid_dim, time_dim, g, **kernels)
 
         self.ups = nn.ModuleList()
         for ind, (dim_in, dim_out) in enumerate(reversed(in_out)):
             is_last = ind == len(in_out) - 1
             self.ups.append(nn.ModuleList([
-                ResnetBlock(dim_out + dim_in, dim_out, time_dim, g),
-                ResnetBlock(dim_out + dim_in, dim_out, time_dim, g),
+                ResnetBlock(dim_out + dim_in, dim_out, time_dim, g, **kernels),
+                ResnetBlock(dim_out + dim_in, dim_out, time_dim, g, **kernels),
                 PreNormAttn(dim_out, LinearAttention(dim_out)),
                 Upsample(dim_out, dim_in) if not is_last else Conv2d(dim_out, dim_in, 3, padding=1),
             ]))
 
-        self.final_res_block = ResnetBlock(dim * 2, dim, time_dim, g)
+        self.final_res_block = ResnetBlock(dim * 2, dim, time_dim, g, **kernels)
         self.final_conv = Conv2d(dim, channels, 1)
 
         self.compute_dtype = dtype

@@ -22,9 +22,6 @@ HEAD_EXPERIMENTS = ("LEDM", "LEDMe", "TEDM")
 
 # (flag, is it set, the ROADMAP item that ports its feature)
 NOT_PORTED = (
-    ("--use_pallas_groupnorm", lambda c: c.use_pallas_groupnorm, "A.4"),
-    ("--use_pallas_resblock", lambda c: c.use_pallas_resblock, "A.4"),
-    ("--use_pallas_flash", lambda c: c.use_pallas_flash, "A.4"),
     ("--remat", lambda c: c.remat, "A.5"),
     ("--profile_dir", lambda c: c.profile_dir is not None, "A.5"),
     ("--multihost", lambda c: c.multihost, "A.5"),

@@ -49,6 +49,15 @@ def compute_dtype(config: Config) -> torch.dtype:
     return torch.bfloat16 if config.mixed_precision else torch.float32
 
 
+def unet_kernels(config: Config) -> Dict[str, bool]:
+    """The ``Unet`` arguments of the opt-in kernel flags, as every JAX
+    trainer passes ``config.use_pallas_{groupnorm,resblock,flash}`` to its
+    ``Unet`` (tedm_tpu/trainers/diffusion.py:71-80,
+    tedm_tpu/trainers/datasetdm.py:46-55,94-103)."""
+    return dict(fused_groupnorm=config.use_pallas_groupnorm, fused_resblock=config.use_pallas_resblock,
+                flash_attention=config.use_pallas_flash)
+
+
 def to_nchw(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """An NHWC numpy batch as a contiguous NCHW float32 tensor on ``device``."""
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32).transpose(0, 3, 1, 2))).to(device)

@@ -23,7 +23,7 @@ from tedm_tpu_torch.data.pipeline import build_dataloaders
 from tedm_tpu_torch.models.segmentation import PixelClassifier, extract_features
 from tedm_tpu_torch.models.unet import Unet
 from tedm_tpu_torch.ops.schedules import DiffusionSchedule, make_schedule
-from tedm_tpu_torch.trainers.common import compute_dtype, init_seeded, train_segmentation
+from tedm_tpu_torch.trainers.common import compute_dtype, init_seeded, train_segmentation, unet_kernels
 from tedm_tpu_torch.utils.checkpoint import checkpoint_exists, load_checkpoint, load_config
 from tedm_tpu_torch.utils.device import resolve_device
 from tedm_tpu_torch.utils.logging import MetricsLogger
@@ -36,13 +36,15 @@ def load_backbone(
     in eval mode on ``device``, with its schedule: restored from
     ``config.saved_diffusion_model`` when a checkpoint is there (its EMA
     weights when present, unless ``serve_raw_params``), else initialised from
-    ``config.seed`` with a warning. The compute dtype is ``config``'s: an fp32
-    checkpoint serves a bf16 head."""
+    ``config.seed`` with a warning. The compute dtype and the opt-in kernels
+    are ``config``'s, the head's, as in JAX (tedm_tpu/trainers/datasetdm.py:43-57):
+    an fp32 checkpoint serves a bf16 head."""
     dev = resolve_device(device)
     dtype = compute_dtype(config)
+    kernels = unet_kernels(config)
     if checkpoint_exists(config.saved_diffusion_model):
         old = load_config(config.saved_diffusion_model)
-        unet = Unet(dim=old.dim, dim_mults=tuple(old.dim_mults), channels=old.channels, dtype=dtype)
+        unet = Unet(dim=old.dim, dim_mults=tuple(old.dim_mults), channels=old.channels, dtype=dtype, **kernels)
         state, _ = load_checkpoint(config.saved_diffusion_model, config)
         served = state["params"] if config.serve_raw_params else state.get("ema_params", state["params"])
         unet.load_state_dict(served)
@@ -52,7 +54,7 @@ def load_backbone(
         unet = init_seeded(
             config.seed,
             lambda: Unet(dim=config.dim, dim_mults=tuple(config.dim_mults), channels=config.channels,
-                         dtype=dtype),
+                         dtype=dtype, **kernels),
         )
         sched = make_schedule(config.timesteps, config.beta_schedule)
     return unet.to(dev).eval().requires_grad_(False), sched.to(dev)

@@ -36,7 +36,7 @@ from tedm_tpu_torch.models.diffusion import (
 )
 from tedm_tpu_torch.models.unet import Unet
 from tedm_tpu_torch.ops.schedules import DiffusionSchedule, make_schedule
-from tedm_tpu_torch.trainers.common import compute_dtype, init_seeded, make_optimizer, to_nchw
+from tedm_tpu_torch.trainers.common import compute_dtype, init_seeded, make_optimizer, to_nchw, unet_kernels
 from tedm_tpu_torch.utils.checkpoint import checkpoint_exists, load_checkpoint, save_checkpoint
 from tedm_tpu_torch.utils.device import resolve_device
 from tedm_tpu_torch.utils.interrupt import graceful_shutdown
@@ -59,12 +59,13 @@ def mode_channels(config: Config) -> Tuple[int, int]:
 
 def build_model(config: Config) -> Unet:
     """The UNet of ``config`` with torch's default init from ``config.seed``,
-    computing in bf16 under ``--mixed_precision``."""
+    computing in bf16 under ``--mixed_precision``, with the opt-in kernels
+    its ``--use_pallas_*`` flags switch on."""
     x_ch, in_ch = mode_channels(config)
     return init_seeded(
         config.seed,
         lambda: Unet(dim=config.dim, dim_mults=tuple(config.dim_mults), channels=x_ch,
-                     in_channels=in_ch, dtype=compute_dtype(config)),
+                     in_channels=in_ch, dtype=compute_dtype(config), **unet_kernels(config)),
     )
 
 

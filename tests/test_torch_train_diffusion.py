@@ -31,6 +31,7 @@ from tedm_tpu.ops.schedules import make_schedule as jax_make_schedule
 from tedm_tpu.trainers import diffusion as JD
 from tedm_tpu_torch.config import Config
 from tedm_tpu_torch.data.datasets import SyntheticCXRDataset
+from tedm_tpu_torch.models import unet as U
 from tedm_tpu_torch.models.diffusion import train_loss
 from tedm_tpu_torch.ops.schedules import make_schedule
 from tedm_tpu_torch.trainers import diffusion as D
@@ -204,8 +205,6 @@ def test_main_trains_validates_resumes_and_feeds_the_backbone(tmp_path):
         (["--experiment", "TEDM", "--grad_accum", "2"], ValueError, "grad_accum"),
         (["--remat"], NotImplementedError, "--remat .*A.5"),
         (["--profile_dir", "p"], NotImplementedError, "--profile_dir .*A.5"),
-        (["--use_pallas_groupnorm"], NotImplementedError, "--use_pallas_groupnorm .*A.4"),
-        (["--use_pallas_resblock"], NotImplementedError, "A.4"),
         (["--param_sharding", "fsdp"], NotImplementedError, "A.5"),
         ([], RuntimeError, "CUDA is not available"),  # the card by default, never a CPU fallback
     ],
@@ -219,3 +218,37 @@ def test_train_main_refuses_what_is_not_ported_and_turns_tf32_off(extra, exc, ma
         train_main(ARGS + ["--log_dir", str(tmp_path / "r")] + extra)
     assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+
+
+FLAGS = {  # flag: (Config field, wrapper in models.unet, the switch on the Unet's modules)
+    "--use_pallas_groupnorm": ("use_pallas_groupnorm", "fused_group_norm_film_silu",
+                               lambda unet: unet.mid_block1.block1.norm.fused),
+    "--use_pallas_resblock": ("use_pallas_resblock", "fused_resnet_block", lambda unet: unet.mid_block1.fused),
+    "--use_pallas_flash": ("use_pallas_flash", "flash_cosine_attention", lambda unet: unet.mid_attn.fn.fn.flash),
+}
+
+
+@pytest.mark.parametrize("flag", list(FLAGS))
+def test_kernel_flags_reach_the_unet(flag, monkeypatch, tmp_path):
+    """``train.main`` takes each opt-in kernel flag (the JAX package's name)
+    and its backbone's forward goes through the flag's kernel wrapper, which
+    runs the plain version on the CPU; ``load_backbone`` takes the flag from
+    the head's config, not the backbone's, as JAX's does
+    (tedm_tpu/trainers/datasetdm.py:43-57)."""
+    field, wrapper, switch = FLAGS[flag]
+    calls = []
+    fn = getattr(U, wrapper)
+    monkeypatch.setattr(U, wrapper, lambda *a, **k: calls.append(1) or fn(*a, **k))
+    train_main(["--experiment", "img_only", "--log_dir", str(tmp_path / "bb"), "--max_steps", "1",
+                "--val_freq", "100", "--log_freq", "1", "--ckpt_every", "1", flag] + ARGS, device="cpu")
+    assert calls
+    saved, cfg = load_checkpoint(str(tmp_path / "CXR14" / "bb" / "step_1"), verbose=False)
+    assert getattr(cfg, field) and saved["step"] == 1
+    head = Config(log_dir=str(tmp_path / "h")).replace(
+        experiment="TEDM", dim=16, dim_mults=(1, 2), img_size=32,
+        saved_diffusion_model=str(tmp_path / "CXR14" / "bb" / "step_1"),
+    ).apply_experiment_preset()
+    for on in (False, True):
+        unet, _ = load_backbone(head.replace(**{field: on}), device="cpu")
+        assert switch(unet) is on
+        assert all(torch.equal(v, saved["params"][k]) for k, v in unet.state_dict().items())
