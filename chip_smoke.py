@@ -20,7 +20,12 @@ Phases, each of which exits non-zero on failure:
      the GroupNorm+FiLM+SiLU, ResnetBlock and flash cosine-attention
      kernels vs plain at every call shape of the default UNet at batch 8
      and 16, in fp32 and bf16, and at edges, each with its controls;
-     device times (CUDA events) beside each kernel's bound;
+     device times (CUDA events) beside each kernel's bound; each launch of
+     one ResnetBlock call at (8, 64->64, 128^2) and (16, 768->512, 16^2) and
+     of one flash call at (8, 4, 32, 256) timed apart under torch.profiler;
+     the ResnetBlock's 1x1 residual conv at every residual call shape
+     by the kernel the path takes and by conv_tc (x one element off), each
+     held against the plain version and timed;
   4. serving path: a full-width TEDM model (random weights from a seed)
      saved with the port's save_checkpoint and served through Predictor for
      4 requests; launches per request; one request traced with
@@ -50,7 +55,9 @@ Phases, each of which exits non-zero on failure:
      flash launches a request) and ``--use_pallas_resblock
      --use_pallas_flash`` (19 ResnetBlock and 1 flash launches, no
      GroupNorm), each in fp32 and bf16, against the CPU plain path of the
-     same config, and against the flag-off request of phases 4 and 8;
+     same config, and against the flag-off request of phases 4 and 8; the
+     ResnetBlock's tensor-core weight layouts are built in the first
+     request only;
  13. opt-in training: backbone steps at batch 16 with ``--use_pallas_resblock
      --use_pallas_flash`` in fp32 and bf16, each with a profiled step and a
      batch-2 step against the CPU plain path, and TEDM head steps with
@@ -154,8 +161,8 @@ KERNEL_KINDS = (
     ("linear_attention backward kernel", ("grad_partials", "combine_grad", "apply_grad")),
     ("prenorm_linear_attention kernel", ("kv_partials", "::combine(", "apply_block")),
     ("fused_group_norm_film_silu kernel", ("gn_partials", "gn_apply")),
-    ("fused_resnet_block kernel", ("conv_tile", "gn_coefs", "finish_identity")),
-    ("flash_cosine_attention kernel", ("row_norms", "flash_fwd")),
+    ("fused_resnet_block kernel", ("conv_tc", "res_tc", "gn_coefs", "finish_identity")),
+    ("flash_cosine_attention kernel", ("row_norms", "flash_fwd", "flash_row")),
     ("convolution / gemm", ("conv", "cudnn", "xmma", "gemm", "fft", "dgrad", "wgrad",
                             "pointwise_mult_and_sum_complex")),
     ("optimizer / EMA (foreach)", ("multi_tensor", "foreach")),
@@ -164,26 +171,29 @@ KERNEL_KINDS = (
 )
 
 
-def profile(label: str, fn) -> None:
+def profile(label: str, fn) -> list:
     """One call of ``fn`` under torch.profiler: device time by kind of
     kernel and by kernel, and the share of the wall time the card was busy.
     The profiler's own overhead inflates the wall time, so the busy share
-    is a lower bound."""
+    is a lower bound. Returns the profile's events, summed by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for _ in range(3):  # a profiler session now and then returns no device events: ask again
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    # device events, less user annotations (an optimizer step's range), whose
-    # time is that of the kernels inside them
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    if busy_ms <= 0:
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        # device events, less user annotations (an optimizer step's range), whose
+        # time is that of the kernels inside them
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        if busy_ms > 0:
+            break
+    else:
         fail("the profiler saw no device time")
     print(f"profile of {label}: {sum(e.count for e in kernels)} kernel launches, device busy "
           f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall ({100 * busy_ms / wall_ms:.1f} %)")
@@ -196,6 +206,48 @@ def profile(label: str, fn) -> None:
         print(f"  {ms:9.3f} ms  {100 * ms / busy_ms:5.1f} %  {kind}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:100]}")
+    return list(prof.key_averages())
+
+
+def device_events(fn, calls: int = 1) -> list:
+    """The device kernels of ``calls`` calls of ``fn`` in one torch.profiler
+    session, in launch order, less user annotations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA and not e.is_user_annotation),
+                  key=lambda e: e.time_range.start)
+
+
+def call_launches(label: str, fn) -> list:
+    """[name, device ms] of each kernel one call of ``fn`` launches, after a
+    warm-up call. A profiler session now and then loses some or all of its
+    device events, so sessions are asked until two in a row give the same
+    kernels."""
+    fn()
+    seen = None
+    for _ in range(6):
+        rows = [[e.name, e.time_range.elapsed_us() / 1e3] for e in device_events(fn)]
+        if rows and seen == [name for name, _ in rows]:
+            return rows
+        seen = [name for name, _ in rows]
+    fail(f"no two profiler sessions in a row saw the same launches of {label}")
+
+
+def launch_profile(label: str, fn) -> list:
+    """One call of ``fn`` under torch.profiler: each device kernel it
+    launched, in launch order, with its device ms, beside their sum.
+    Returns [name, ms] per launch."""
+    rows = call_launches(label, fn)
+    print(f"launches of {label}: {len(rows)}, device ms summed {sum(ms for _, ms in rows):.4f}", flush=True)
+    for name, ms in rows:
+        print(f"  {ms:9.4f} ms  {name[:110]}", flush=True)
+    return rows
 
 
 def read_metrics(run_dir: str) -> list:
@@ -571,13 +623,60 @@ def default_block(args):
     return lambda: m.block2(m.block1(x, ss)) + m.res_conv(x)
 
 
+def last_launch_ms(label: str, fn, calls: int = REPS) -> tuple:
+    """(name, median device ms) of the last kernel that a call of ``fn``
+    launches, over ``calls`` calls in one profiler session. The kernel is
+    found by name, so that a session which loses some device events still
+    times the rest; it must be launched once a call."""
+    names = [name for name, _ in call_launches(label, fn)]
+    last = names[-1]
+    if names.count(last) != 1:
+        fail(f"{label} launches its last kernel {names.count(last)} times a call: {last}")
+    for _ in range(3):
+        times = [e.time_range.elapsed_us() / 1e3 for e in device_events(fn, calls) if e.name == last]
+        if calls // 2 <= len(times) <= calls:
+            return last, statistics.median(times)
+    fail(f"{label}: {len(times)} launches of {last} in {calls} calls")
+
+
+def residual_routes(rb, gen) -> list:
+    """The residual 1x1 conv at every residual call shape of the default
+    UNet (batch 8 and 16) in each dtype, by the kernel the path takes
+    (res_tc in bf16 and from 64^2 up in fp32, which needs x's rows 16-byte
+    aligned; else conv_tc<T, 1, RESIDUAL>) and by conv_tc, taken when x
+    starts one element off. Each is held against the plain version; each
+    row gives the residual launch's median device ms by either route."""
+    rows = []
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            for shape in dict.fromkeys(s for s in rb_shapes(8) + rb_shapes(16) if s[1] != s[2]):
+                args = rb_inputs(gen, shape, dtype)
+                x = args[0]
+                off = torch.empty(x.numel() + 1, device="cuda", dtype=dtype)[1:].view(x.shape)
+                off.copy_(x)
+                want = "res_tc" if dtype == torch.bfloat16 or shape[3] * shape[4] >= 64 * 64 else "conv_tc"
+                row = {"shape": list(shape), "dtype": dtype_name(dtype), "path_kernel": want}
+                for key, xs, kernel in (("path", x, want), ("conv_tc", off, "conv_tc")):
+                    rb_check(rb, (xs,) + args[1:], (shape, dtype, key))
+                    name, row[f"{key}_ms"] = last_launch_ms(f"fused_resnet_block {shape} {row['dtype']} x {key}",
+                                                            lambda: rb.fused_resnet_block(xs, *args[1:]))
+                    if kernel not in name:
+                        fail(f"fused_resnet_block {shape} {dtype_name(dtype)} with x {key} ended in {name}, not {kernel}")
+                rows.append(row)
+                print(f"fused_resnet_block residual {shape} {row['dtype']}: path ({want}) {row['path_ms']:.4f} ms, "
+                      f"conv_tc {row['conv_tc_ms']:.4f} ms", flush=True)
+                del args, x, off
+    return rows
+
+
 def check_resblock(rb, gen):
     """B.4 against its plain version at every call shape of the default UNet
     at batch 8 and 16, in fp32 and bf16, and at edges; per-call rows with the
-    kernel's, the plain version's and the flag-off block's times."""
+    kernel's, the plain version's and the flag-off block's times, and the
+    launches of one call at two shapes timed apart."""
     from tedm_tpu_torch.kernels.bounds import bound, resblock_call
 
-    rows = {}
+    rows, per_launch = {}, {}
     with torch.no_grad():
         for dtype in (torch.float32, torch.bfloat16):
             for shape in dict.fromkeys(rb_shapes(8) + rb_shapes(16)):
@@ -600,9 +699,18 @@ def check_resblock(rb, gen):
                 rb_check(rb, rb_inputs(gen, shape, dtype, film), (shape, dtype, film))
             wide = (0.2 * torch.randn(2, 3 * 64, 12, 8, generator=gen, device="cuda")).to(dtype)
             rb_check(rb, rb_inputs(gen, (2, 64, 64, 12, 8), dtype, x=wide[:, 64:128]), "x with a batch stride")
+            # each launch of one call: the widest plane and the deepest K
+            for shape in [(8, 64, 64, 128, 128), (16, 768, 512, 16, 16)]:
+                args = rb_inputs(gen, shape, dtype)
+                per_launch[f"{shape} {dtype_name(dtype)}"] = launches_of = launch_profile(
+                    f"fused_resnet_block {shape} {dtype_name(dtype)}", lambda: rb.fused_resnet_block(*args))
+                convs = sum(any(k in name for k in ("conv_tc", "res_tc")) for name, _ in launches_of)
+                if convs != (2 if shape[1] == shape[2] else 3):
+                    fail(f"fused_resnet_block {shape} made {convs} tensor-core conv launches")
+                del args
     print("fused_resnet_block edges (N = 1, 17, 255; 8x12; C = 16; B = 1, 3; no FiLM; identity and 1x1 "
           "residual; a strided x): within tolerance", flush=True)
-    return rows
+    return rows, per_launch, residual_routes(rb, gen)
 
 
 # ------------------------------------------------------------------ B.5
@@ -619,10 +727,11 @@ def check_flash(fa, gen):
     and 16, at N = 1024 and 4096 (256^2 and 512^2 inputs) and at edges, in
     fp32 and bf16, with its control (the norms over d instead of N); per-call
     rows with times and the time of F.scaled_dot_product_attention(scale=16)
-    on pre-normalised q and k, the library's call for the same function."""
+    on pre-normalised q and k, the library's call for the same function.
+    At the path's N = 256 one call is one launch."""
     from tedm_tpu_torch.kernels.bounds import bound, flash_call
 
-    rows = {}
+    rows, per_launch = {}, {}
     with torch.no_grad():
         for dtype in (torch.float32, torch.bfloat16):
             for b, n in [(8, 256), (16, 256), (8, 1024), (8, 4096), (2, 1), (3, 17), (1, 255)]:
@@ -644,9 +753,15 @@ def check_flash(fa, gen):
                 print(f"flash_cosine_attention {(b, 4, 32, n)} {row['dtype']}: max_abs_err {err:.3e} (control "
                       f"{ctl:.3f}) kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms sdpa "
                       f"{row['library_ms']:.4f} ms bound {1e3 * row['bound_ms']:.2f} us", flush=True)
+                if (b, n) == (8, 256):
+                    label = f"flash_cosine_attention {(b, 4, 32, n)} {row['dtype']}"
+                    per_launch[label] = launch_profile(label, lambda: fa.flash_cosine_attention(q, k, v, 16.0))
+                    made = sum(any(s in name for s in ("flash_fwd", "flash_row", "row_norms")) for name, _ in per_launch[label])
+                    if made != 1:
+                        fail(f"{label} made {made} launches, not one")
     print("flash_cosine_attention edges (N = 1, 17, 255; B = 2, 3, 1) on strided q, k, v views: within tolerance",
           flush=True)
-    return rows
+    return rows, per_launch
 
 
 # ------------------------------------------------------------------ launches
@@ -706,6 +821,7 @@ def serve(tmp, mixed: bool, flags=(), flag_off=None):
     Returns the launches, the probabilities of one request (image 0, fixed
     noise) and the median latency."""
     from tedm_tpu_torch.config import Config
+    from tedm_tpu_torch.kernels import resblock as rb
     from tedm_tpu_torch.serve.app import Predictor
     from tedm_tpu_torch.trainers.datasetdm import build_task
     from tedm_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
@@ -734,13 +850,14 @@ def serve(tmp, mixed: bool, flags=(), flag_off=None):
     torch.cuda.reset_peak_memory_stats()
 
     reset_launches()
-    latencies, masks, per_request = [], [], []
+    latencies, masks, per_request, layouts = [], [], [], []
     for img in imgs:
-        before = read_launches()
+        before, built = read_launches(), rb.fused_resnet_block.layouts_built
         t0 = time.perf_counter()
         masks.append(predictor.predict(img, "TEDM", 1))  # returns host numpy: synchronised
         latencies.append(1e3 * (time.perf_counter() - t0))
         per_request.append({k: v - before[k] for k, v in read_launches().items()})
+        layouts.append(rb.fused_resnet_block.layouts_built - built)
     total = read_launches()
     peak = torch.cuda.max_memory_allocated()
     expected = per_unet_call(mixed, flags)
@@ -755,7 +872,11 @@ def serve(tmp, mixed: bool, flags=(), flag_off=None):
     unet = next(iter(predictor._cache.values()))[1].unet
     if unet.compute_dtype != (torch.bfloat16 if mixed else torch.float32):
         fail(f"the {label}checkpoint was served in {unet.compute_dtype}")
-    profile(f"one {label}request", lambda: predictor.predict(imgs[0], "TEDM", 1))
+    events = profile(f"one {label}request", lambda: predictor.predict(imgs[0], "TEDM", 1))
+    if "--use_pallas_resblock" in flags:
+        print(f"{label}ResnetBlock weight layouts built per request: {layouts}", flush=True)
+        if not layouts[0] or any(layouts[1:]) or any(e.key == rb.LAYOUT_RANGE for e in events):
+            fail(f"{label}weight layouts were built after the first request: {layouts}")
     for m in masks:
         if m.shape != (cfg.img_size, cfg.img_size) or not set(np.unique(m)) <= {0.0, 1.0}:
             fail(f"{label}mask of shape {m.shape} with values {np.unique(m)[:5]}")
@@ -857,6 +978,7 @@ def train_opt_in(tmp, mixed: bool, flag_off_ms: float):
     with ``--use_pallas_resblock --use_pallas_flash``, without validation.
     Returns the launches."""
     from tedm_tpu_torch.config import config_from_args
+    from tedm_tpu_torch.kernels import resblock as rb
     from tedm_tpu_torch.train import main as train_main
 
     flags = ("--use_pallas_resblock", "--use_pallas_flash")
@@ -869,11 +991,13 @@ def train_opt_in(tmp, mixed: bool, flag_off_ms: float):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    built = rb.fused_resnet_block.layouts_built
     t0 = time.perf_counter()
     train_main(argv, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_launches()
+    built = rb.fused_resnet_block.layouts_built - built
     peak = torch.cuda.max_memory_allocated()
     steps = [r for r in read_metrics(cfg.log_dir) if "train/loss" in r]
     step_ms = [1e3 * cfg.batch_size / r["train/imgs_per_sec"] for r in steps]
@@ -884,7 +1008,8 @@ def train_opt_in(tmp, mixed: bool, flag_off_ms: float):
           f"{[round(x, 1) for x in step_ms]}; median of steps 2-{len(steps)} {median:.3f} ms = "
           f"{1e3 * cfg.batch_size / median:.2f} imgs/s (flag-off {flag_off_ms:.3f} ms in this run); losses "
           f"{losses[0]:.4f} .. {losses[-1]:.4f}; peak device memory {peak} bytes ({peak / 2**30:.3f} GiB); "
-          f"launches per step {({k: v for k, v in per_step.items() if v})}", flush=True)
+          f"launches per step {({k: v for k, v in per_step.items() if v})}; ResnetBlock weight layouts built "
+          f"{built / max(len(steps), 1):.1f} a step (the weights move every step)", flush=True)
     if len(steps) != OPT_IN_STEPS or not all(math.isfinite(x) for x in losses):
         fail(f"{label}: {len(steps)} steps, losses {losses}")
     if per_step != per_unet_call(mixed, flags, backward=True):
@@ -1039,8 +1164,8 @@ def main() -> None:
         bwd_rows = check_backward(la, gen, scale)
         block_rows = check_block(ab, gen)
         gn_rows = check_groupnorm(gn, gen)
-        rb_rows = check_resblock(rb, gen)
-        fa_rows = check_flash(fa, gen)
+        rb_rows, rb_launches, rb_residual = check_resblock(rb, gen)
+        fa_rows, fa_launches = check_flash(fa, gen)
 
     with tempfile.TemporaryDirectory() as tmp:
         with Phase("4. serving path"):
@@ -1147,11 +1272,13 @@ def main() -> None:
         entry(GN, "tedm_tpu_torch/kernels/csrc/groupnorm.cu", "tedm_tpu/ops/pallas/groupnorm.py:133", gn_rows,
               gn_req, [(s, torch.float32, f) for s, f in gn_calls(16)]),
         entry(RB, "tedm_tpu_torch/kernels/csrc/resblock.cu", "tedm_tpu/ops/pallas/resblock.py:199", rb_rows,
-              rb_req, [(s, torch.float32) for s in rb_shapes(16)]),
+              rb_req, [(s, torch.float32) for s in rb_shapes(16)], per_launch=rb_launches,
+              residual_routes=rb_residual),
         # the mid attention, one call; library_ms: F.scaled_dot_product_attention
         # (scale=16) on pre-normalised q and k
         entry(FA, "tedm_tpu_torch/kernels/csrc/flash_attention.cu", "tedm_tpu/ops/pallas/flash_attention.py:114",
-              fa_rows, [(8, 256, torch.float32)], [(16, 256, torch.float32)], per_shape=list(fa_rows.values())),
+              fa_rows, [(8, 256, torch.float32)], [(16, 256, torch.float32)], per_shape=list(fa_rows.values()),
+              per_launch=fa_launches),
     ]
     for kern in kernels:
         if kern["launches"] == 0:

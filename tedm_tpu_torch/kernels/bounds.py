@@ -6,6 +6,12 @@ at the shapes the JAX package's default UNet (dim 64, mults (1, 2, 4, 8),
 output written once) over the card's memory rate, and the operations it
 does over the card's peak rate for their type; the bound is the larger.
 Rates are NVIDIA's data-sheet figures for the H100 SXM at its 700 W limit.
+Where a kernel keeps fp32 accuracy on the tensor cores by splitting its
+operands (an fp32 product as hi*hi + hi*lo + lo*hi, three TF32 products;
+with bf16 inputs, which are exact in bf16, the other operand as two bf16
+parts, two bf16 products), its operations are counted at the tensor-core
+rate of that type over the number of products: the least time of the route
+the kernel takes.
 
     python -m tedm_tpu_torch.kernels.bounds
 
@@ -22,6 +28,9 @@ from typing import Dict, List, Tuple
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate
 FP32_FLOPS_PER_S = 67e12       # fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12      # bf16 tensor cores, dense
+TF32_FLOPS_PER_S = 495e12      # TF32 tensor cores, dense
+SPLIT_TF32_FLOPS_PER_S = TF32_FLOPS_PER_S / 3   # an fp32 product as three TF32 products
+SPLIT_BF16_FLOPS_PER_S = BF16_FLOPS_PER_S / 2  # a product with a bf16 operand as two bf16 products
 
 DIM, MULTS, SIZE = 64, (1, 2, 4, 8), 128
 HEADS, DIM_HEAD = 4, 32
@@ -62,18 +71,21 @@ def groupnorm_call(batch: int, c: int, hw: int, itemsize: int = 4) -> Tuple[floa
 def resblock_call(batch: int, c_in: int, c_out: int, hw: int, itemsize: int = 4) -> Tuple[float, float, float]:
     """(bytes, operations, rate) of one whole ResnetBlock: x read and out
     written in their dtype, the fp32 weights read; the two 3x3 convs and
-    the 1x1 res conv where the width changes, on the CUDA cores in fp32 and
-    on the tensor cores in bf16."""
+    the 1x1 res conv where the width changes, on the tensor cores: bf16, or
+    in fp32 split TF32."""
     weights = 9 * c_in * c_out + 9 * c_out * c_out + (c_in * c_out if c_in != c_out else 0)
     return (itemsize * batch * (c_in + c_out) * hw + 4 * weights, 2 * batch * hw * weights,
-            BF16_FLOPS_PER_S if itemsize == 2 else FP32_FLOPS_PER_S)
+            BF16_FLOPS_PER_S if itemsize == 2 else SPLIT_TF32_FLOPS_PER_S)
 
 
 def flash_call(batch: int, n: int, itemsize: int = 4) -> Tuple[float, float, float]:
     """(bytes, operations, rate) of one cosine attention over (batch, 4, 32,
-    n): q, k, v read and out written in their dtype; QK^T and PV in fp32, as
-    the JAX kernel runs them at Precision.HIGHEST."""
-    return 4 * itemsize * batch * HEADS * DIM_HEAD * n, 4 * batch * HEADS * n * n * DIM_HEAD, FP32_FLOPS_PER_S
+    n): q, k, v read and out written in their dtype; QK^T and PV to fp32
+    accuracy, as the JAX kernel runs them at Precision.HIGHEST: split TF32,
+    three products; with bf16 k and v, the folded q and the probabilities as
+    two bf16 parts, two bf16 products."""
+    return (4 * itemsize * batch * HEADS * DIM_HEAD * n, 4 * batch * HEADS * n * n * DIM_HEAD,
+            SPLIT_BF16_FLOPS_PER_S if itemsize == 2 else SPLIT_TF32_FLOPS_PER_S)
 
 
 def kernel_bounds(batch: int) -> Dict[str, Dict]:

@@ -12,9 +12,11 @@ reference normalises its (b, h, d, n) layout over the last axis
 Pallas ``_flash_kernel`` launched by ``_flash_pallas``, whose
 ``jax.custom_vjp`` backward differentiates ``cosine_attention_reference``).
 On a CUDA tensor ``flash_cosine_attention`` launches the hand-written
-Hopper kernels in ``csrc/flash_attention.cu`` (design and bound in that
-file's header) through an ``autograd.Function`` whose backward
-differentiates the plain version, as JAX's does; on a CPU tensor it runs
+Hopper kernel in ``csrc/flash_attention.cu`` (products on the tensor cores
+to fp32 accuracy: split TF32 for fp32 inputs, two bf16 parts for bf16
+ones; one launch at the path's N; design and bound in that file's header)
+through an ``autograd.Function`` whose backward differentiates the plain
+version, as JAX's does; on a CPU tensor it runs
 ``cosine_attention_reference``, differentiated by autograd. The layout is
 the Pallas kernel's (BH, d, N), with the batch and head axes apart.
 """
@@ -23,7 +25,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-
 import torch
 import torch.nn.functional as F
 
@@ -75,7 +76,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
-    """Launch the kernels: out (B, h, d, N) contiguous, in q's dtype."""
+    """Launch the kernel: out (B, h, d, N) contiguous, in q's dtype. Up to
+    N = 256 one launch, whose blocks compute the norms; above it a norm
+    pre-pass and the tiled kernel (csrc/flash_attention.cu)."""
     _check(q, k, v)
     b, h, d, n = q.shape
     lib = _library()

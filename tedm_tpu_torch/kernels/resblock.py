@@ -20,14 +20,20 @@ Cout, 3, 3), ``wres`` (Cout, Cin, 1, 1) or None, biases and GroupNorm
 gains and shifts (Cout,), FiLM ``scale``/``shift`` (B, Cout) or None. They
 stay fp32; a convolution in the compute dtype rounds both operands to it
 and sums in fp32, as ``preferred_element_type=jnp.float32`` does. The
-wrapper lays the weights out (Cin, taps, Cout) for the kernel on each call.
+kernel reads each conv weight in its tensor-core layout
+(``tc_weight_layout``): bf16 values, or for fp32 the TF32 hi and lo parts
+of the split-TF32 products. A layout is built once per weight, compute
+dtype, version (``Tensor._version``, which an optimizer's in-place step
+bumps) and storage of the weight, and kept while the weight lives, so a
+served model builds each once and a trained one once per step.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+import weakref
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -87,13 +93,78 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _taps_layout(w: torch.Tensor, cout: int, cin: int, k: int, cdt: torch.dtype, x: torch.Tensor) -> torch.Tensor:
-    """A (Cout, Cin, k, k) conv weight as the kernel reads it: (Cin, k*k,
-    Cout) fp32, contiguous, holding values of the compute dtype."""
+BN = 64  # output channels of a kernel block, the wgmma's N
+# input channels of a chunk and values in 16 bytes, by compute dtype
+_CHUNK = {torch.bfloat16: (32, 8), torch.float32: (8, 4)}
+LAYOUT_RANGE = "fused_resnet_block weight layout"  # profiler range of a layout build
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """fp32 values rounded to TF32 (10 explicit mantissa bits, nearest,
+    ties away from zero), as the card's ``cvt.rna.tf32.f32`` rounds."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) with t = hi + lo to 2**-22 of |t|: hi its TF32 rounding, lo
+    the TF32 rounding of the rest. hi*hi + hi*lo + lo*hi is the product the
+    kernels' split-TF32 route computes."""
+    hi = tf32_round(t)
+    return hi, tf32_round(t.float() - hi)
+
+
+def tc_weight_layout(w: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+    """A (Cout, Cin, k, k) conv weight as the kernel's bulk copies read it:
+    for each block of 64 output channels and chunk of KC input channels
+    (32 in bf16, 8 in fp32), one contiguous run that is the shared-memory B
+    operand of all k*k taps, [plane][tap][k-step][n group of 8][k half][8
+    rows][16 bytes]: the wgmma no-swizzle K-major layout (csrc/tensor_core.cuh).
+    bf16: one plane of bf16 values; fp32: the TF32 hi and lo planes.
+    Output channels pad to 64 and input channels to KC with zeros."""
+    cout, cin, k, _ = w.shape
+    taps = k * k
+    kc, e = _CHUNK[cdt]
+    nb, nc = -(-cout // BN), -(-cin // kc)
+    wp = torch.zeros(nb * BN, nc * kc, taps, device=w.device, dtype=torch.float32)
+    wp[:cout, :cin] = w.detach().float().reshape(cout, cin, taps)
+    planes = [wp.to(cdt)] if cdt == torch.bfloat16 else list(tf32_split(wp))
+    t = torch.stack(planes).reshape(len(planes), nb, BN // 8, 8, nc, kc // (2 * e), 2, e, taps)
+    # (plane, nb, n group, row, chunk, k-step, k half, value, tap) -> the layout's order
+    return t.permute(1, 4, 0, 8, 5, 2, 6, 3, 7).contiguous()
+
+
+# (id(w), cdt) -> (weakref to w, (w._version, w.data_ptr(), w.device), layout)
+_layouts: Dict[tuple, tuple] = {}
+
+
+def cached_weight_layout(w: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+    """``tc_weight_layout(w, cdt)``, rebuilt when w's version moves (an
+    in-place update) or its storage does (``w.data = t``, ``Module.to``),
+    and dropped when w is freed. An inference tensor has no version counter
+    and is laid out on every call."""
+    if w.is_inference():
+        return _build_layout(w, cdt)
+    key, state = (id(w), cdt), (w._version, w.data_ptr(), w.device)
+    hit = _layouts.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == state:
+        return hit[2]
+    layout = _build_layout(w, cdt)
+    _layouts[key] = (weakref.ref(w, lambda _, key=key: _layouts.pop(key, None)), state, layout)
+    return layout
+
+
+def _build_layout(w: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+    with torch.profiler.record_function(LAYOUT_RANGE), torch.no_grad():
+        fused_resnet_block.layouts_built += 1
+        return tc_weight_layout(w, cdt)
+
+
+def _weight(w: torch.Tensor, cout: int, cin: int, k: int, x: torch.Tensor) -> torch.Tensor:
     if w.shape != (cout, cin, k, k) or w.device != x.device:
         raise ValueError(f"a conv weight of shape {tuple(w.shape)} on {w.device}, expected "
                          f"{(cout, cin, k, k)} on {x.device}")
-    return w.detach().to(cdt).float().permute(1, 2, 3, 0).reshape(cin, k * k, cout).contiguous()
+    return cached_weight_layout(w, x.dtype)
 
 
 def _forward(x, w1, b1, g1, be1, scale, shift, w2, b2, g2, be2, wres, bres, groups, eps) -> torch.Tensor:
@@ -109,9 +180,9 @@ def _forward(x, w1, b1, g1, be1, scale, shift, w2, b2, g2, be2, wres, bres, grou
     vec = [t.detach().float().reshape(cout).contiguous() for t in (b1, g1, be1, b2, g2, be2)]
     if any(t.device != x.device for t in vec):
         raise ValueError(f"biases and gains must be on {x.device}")
-    w1t = _taps_layout(w1, cout, cin, 3, cdt, x)
-    w2t = _taps_layout(w2, cout, cout, 3, cdt, x)
-    wrest = None if wres is None else _taps_layout(wres, cout, cin, 1, cdt, x)
+    w1t = _weight(w1, cout, cin, 3, x)
+    w2t = _weight(w2, cout, cout, 3, x)
+    wrest = None if wres is None else _weight(wres, cout, cin, 1, x)
     brest = None if wres is None else bres.detach().float().reshape(cout).contiguous()
     scale, shift, film_stride, film_bf16 = film_rows(scale, shift, x, cout)
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -179,3 +250,4 @@ def fused_resnet_block(
 
 
 fused_resnet_block.launches = 0
+fused_resnet_block.layouts_built = 0  # tensor-core weight layouts built (cached_weight_layout)

@@ -9,7 +9,9 @@ against ``jax.vjp`` of the interpret path (JAX's ``_flash_bwd``) at 2e-4 of
 each gradient's largest entry. JAX's layout is (B, h, N, d), the port's
 (B, h, d, N). The CUDA kernel is held against the plain version on the
 card by ``chip_smoke.py``; the checks around it are Python and are tested
-here.
+here, with the kernel's arithmetic emulated in plain PyTorch against the
+2e-5 gate (split TF32 for fp32 inputs, two bf16 parts of q and P for bf16
+ones; one product of the rounded operands, the control, misses it).
 """
 
 import jax
@@ -20,6 +22,7 @@ import torch
 
 from tedm_tpu.ops.pallas.flash_attention import flash_cosine_attention_interpret as jax_interpret
 from tedm_tpu_torch.kernels import flash_attention as FA
+from tedm_tpu_torch.kernels import resblock as RB
 
 torch.set_num_threads(1)
 
@@ -107,10 +110,80 @@ def test_kernel_checks():
 
 def test_kernel_bound_reads_the_default_unet():
     """Row 5 of PERF.md's table: one call a forward at the 16x16 mid stage
-    (N = 256), bound by its fp32 products in either dtype."""
+    (N = 256). In fp32 its products bound it, three TF32 products each; in
+    bf16, at two bf16 products each, the bytes of q, k, v and out do."""
     from tedm_tpu_torch.kernels import bounds
 
     rows = bounds.kernel_bounds(8)
-    for name in ("flash_cosine_attention", "flash_cosine_attention (bf16)"):
-        assert rows[name]["calls"] == 1 and rows[name]["bound_by"] == "operations"
-        assert rows[name]["bound_ms"] == pytest.approx(1e3 * 4 * 8 * 4 * 256 * 256 * 32 / 67e12)
+    flops, elems = 4 * 8 * 4 * 256 * 256 * 32, 4 * 8 * 4 * 32 * 256
+    fp32, bf16 = rows["flash_cosine_attention"], rows["flash_cosine_attention (bf16)"]
+    assert fp32["calls"] == bf16["calls"] == 1
+    assert fp32["bound_by"] == "operations" and fp32["bound_ms"] == pytest.approx(1e3 * flops / (495e12 / 3))
+    assert bf16["bound_by"] == "bytes" and bf16["bound_ms"] == pytest.approx(1e3 * 2 * elems / 3.35e12)
+    assert 1e3 * flops / (989e12 / 2) < bf16["bound_ms"]
+
+
+def _bf16_split(t):
+    """(hi, lo) with t = hi + lo to 2**-16 of |t|, as the kernel splits an
+    fp32 operand of a bf16 product (csrc/tensor_core.cuh split_bf16x2): hi
+    the upper 16 bits of t's fp32 bits (truncated), lo the rest rounded to
+    bf16."""
+    bits = t.float().contiguous().view(torch.int32)
+    hi = (bits & -0x10000).view(torch.float32)
+    return hi, (t.float() - hi).bfloat16().float()
+
+
+def _kernel_route(q, k, v, scale, single_pass=False):
+    """The kernel's arithmetic in plain PyTorch: scale / (|q_d| |k_d|)
+    folded into q, then S = q^T k and P v with fp32 sums. fp32 inputs:
+    split-TF32 products (lo*hi + hi*lo + hi*hi). bf16 inputs: k and v exact
+    in bf16, the folded q and P as two bf16 parts (lo*k + hi*k). Or one
+    product each of the rounded operands (a control)."""
+    bf16 = q.dtype == torch.bfloat16
+    q, k, v = q.float(), k.float(), v.float()
+    nq, nk = (t.norm(dim=-1, keepdim=True).clamp_min(1e-12) for t in (q, k))
+    qf = q * (scale / (nq * nk))
+
+    def mm(eq, a, b):
+        if bf16:
+            (ah, al), bh = _bf16_split(a), b
+            return torch.einsum(eq, ah, bh) if single_pass else torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bh)
+        (ah, al), (bh, bl) = RB.tf32_split(a), RB.tf32_split(b)
+        if single_pass:
+            return torch.einsum(eq, ah, bh)
+        return torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl) + torch.einsum(eq, ah, bh)
+
+    s = mm("bhdi,bhdj->bhij", qf, k)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return mm("bhij,bhdj->bhdi", p, v) / p.sum(dim=-1).unsqueeze(2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_route_holds_the_fp32_gate_at_n_256(dtype):
+    """At the path's shape (8, 4, 32, 256), on the card check's inputs, the
+    kernel's route agrees with the fp32 plain version on the same values
+    within the 2e-5 gate: split TF32 for fp32 inputs, two bf16 parts of q
+    and P for bf16 ones (before the output's rounding to bf16); one product
+    of the rounded operands each (the control) does not."""
+    q, k, v = (torch.from_numpy(a).to(dtype)
+               for a in np.random.RandomState(7).randn(3, 8, 4, 32, 256).astype(np.float32))
+    want = FA.cosine_attention_reference(q.float(), k.float(), v.float(), SCALE)
+    split = (_kernel_route(q, k, v, SCALE) - want).abs().max().item()
+    single = (_kernel_route(q, k, v, SCALE, single_pass=True) - want).abs().max().item()
+    assert split <= 2e-5 < single, (split, single)
+
+
+def test_bf16_inputs_need_two_products():
+    """bf16 k and v are exact in bf16 and in TF32 (lo = 0): for them the
+    kernel's two products (q_lo k + q_hi k, and P likewise) give what three
+    would, bit for bit."""
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in np.random.RandomState(8).randn(3, 2, 4, 32, 64).astype(np.float32))
+    for t in (k, v):
+        for hi, lo in (RB.tf32_split(t.float()), _bf16_split(t)):
+            assert torch.equal(hi, t.float()) and not lo.any()
+    qh, ql = _bf16_split(q.float() * 0.37)
+    kh, kl = _bf16_split(k)
+    three = torch.einsum("bhdi,bhdj->bhij", ql, kh) + torch.einsum("bhdi,bhdj->bhij", qh, kl) \
+        + torch.einsum("bhdi,bhdj->bhij", qh, kh)
+    two = torch.einsum("bhdi,bhdj->bhij", ql, kh) + torch.einsum("bhdi,bhdj->bhij", qh, kh)
+    assert torch.equal(three, two)

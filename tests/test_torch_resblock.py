@@ -10,6 +10,13 @@ parameters against ``jax.vjp`` of the interpret path (JAX's
 ``_block_bwd``) at 2e-4 of each gradient's largest entry. JAX's layout is
 NHWC with HWIO weights, the port's NCHW with OIHW weights.
 
+The CUDA kernel itself runs only on the card (``chip_smoke.py``); what
+surrounds it is held here: its tensor-core weight layout, read by the
+addresses the kernel's wgmma descriptors give, in an im2col GEMM against
+``F.conv2d``; the layout cache; and its fp32 route, split TF32, emulated
+in plain PyTorch against the 2e-5 gate, with one TF32 product as the
+control that must miss it.
+
 Then the UNet (dim 16): with ``fused_resblock`` it keeps the default
 ``state_dict`` keys; its routing sends 19 blocks through B.4 and none
 through B.3 when both flags are set; each flag against the JAX
@@ -20,11 +27,14 @@ prediction served by ``Predictor`` from a ``--use_pallas_resblock
 from the same weights (``utils/convert.py``).
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from tedm_tpu.models.segmentation import PixelClassifier as JaxPixelClassifier
 from tedm_tpu.models.segmentation import extract_features as jax_extract_features
@@ -149,16 +159,136 @@ def test_cpu_tensors_take_the_plain_version():
     torch.testing.assert_close(out, RB.resnet_block_reference(*args), atol=0, rtol=0)
 
 
+def _as_the_kernel_reads(layout, cout, cin, taps, cdt):
+    """Decode a tensor-core weight layout by the addresses conv_tc's wgmma
+    descriptors give (csrc/tensor_core.cuh: a core matrix is 8 rows of 16
+    bytes, LBO = 128 bytes to the next along K, SBO = 256 bytes to the next
+    8 rows of N; one k-step 2048 bytes; per 64-channel block and chunk of
+    KC input channels, [plane][tap][k-step]): (planes, Cout, Cin, taps)."""
+    esize = layout.element_size()
+    e, kc = 16 // esize, {torch.bfloat16: 32, torch.float32: 8}[cdt]
+    ksteps, planes = kc // (2 * e), 1 if cdt == torch.bfloat16 else 2
+    nb, nc = -(-cout // 64), -(-cin // kc)
+    flat = layout.reshape(-1)
+    assert flat.numel() * esize == nb * nc * planes * taps * ksteps * 2048
+    out = torch.zeros(planes, nb * 64, nc * kc, taps, dtype=layout.dtype)
+    n, kk = torch.meshgrid(torch.arange(64), torch.arange(2 * e), indexing="ij")
+    for b in range(nb):
+        for c in range(nc):
+            for p in range(planes):
+                for tap in range(taps):
+                    for ks in range(ksteps):
+                        start = (((b * nc + c) * planes + p) * taps * ksteps + tap * ksteps + ks) * 2048
+                        byte = start + (n // 8) * 256 + (kk // e) * 128 + (n % 8) * 16 + (kk % e) * esize
+                        out[p, b * 64 + n, c * kc + ks * 2 * e + kk, tap] = flat[byte // esize]
+    return out[:, :cout, :cin]
+
+
 def test_taps_layout():
-    """The kernel's weight layout: (Cin, 9, Cout), tap dy*3+dx, values
-    rounded to the compute dtype."""
-    w = torch.randn(8, 4, 3, 3)
-    x = torch.zeros(1, 4, 2, 2)
-    t = RB._taps_layout(w, 8, 4, 3, torch.bfloat16, x)
-    assert t.shape == (4, 9, 8) and t.dtype == torch.float32 and t.is_contiguous()
-    assert t[1, 2 * 3 + 0, 5] == w[5, 1, 2, 0].bfloat16().float()
-    with pytest.raises(ValueError):
-        RB._taps_layout(w, 8, 4, 1, torch.float32, x)
+    """The kernel's weight layout (tc_weight_layout), read as the kernel
+    reads it, in an im2col GEMM in plain PyTorch: it reproduces F.conv2d to
+    1e-6 in fp32 (the TF32 hi and lo planes summed) and bit for bit on
+    bf16 values (integers, so that every sum is exact in any order); with
+    Cout and Cin off the 64-channel blocks and chunks, and a 1x1 conv."""
+    for cdt in (torch.float32, torch.bfloat16):
+        for cout, cin, k in [(24, 16, 3), (64, 40, 3), (72, 24, 1)]:
+            _check_layout(cdt, cout, cin, k)
+
+
+def _check_layout(cdt, cout, cin, k):
+    rs = np.random.RandomState(cout + cin + k)
+    if cdt == torch.bfloat16:
+        w = torch.from_numpy(rs.randint(-8, 9, (cout, cin, k, k)).astype(np.float32))
+        x = torch.from_numpy(rs.randint(-8, 9, (2, cin, 5, 7)).astype(np.float32))
+    else:
+        w = torch.from_numpy(rs.randn(cout, cin, k, k).astype(np.float32))
+        x = torch.from_numpy(rs.randn(2, cin, 5, 7).astype(np.float32))
+    layout = RB.tc_weight_layout(w, cdt)
+    assert layout.dtype == cdt and layout.is_contiguous()
+    read = _as_the_kernel_reads(layout, cout, cin, k * k, cdt).float()
+    if cdt == torch.float32:
+        hi, lo = read
+        assert torch.equal(hi, RB.tf32_round(hi)) and torch.equal(lo, RB.tf32_round(lo))
+        torch.testing.assert_close(hi + lo, w.reshape(cout, cin, k * k), atol=0, rtol=2 ** -21)
+    wmat = read.sum(0).reshape(cout, cin * k * k)
+    cols = F.unfold(x, k, padding=k // 2)  # (B, Cin * taps, pixels), channel-major as wmat
+    got = (wmat @ cols).reshape(2, cout, 5, 7)
+    want = F.conv2d(x, w, padding=k // 2)
+    if cdt == torch.bfloat16:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, atol=1e-6 * want.abs().max().item(), rtol=0)
+
+
+def test_weight_layout_is_cached_per_version():
+    """A layout is built once per weight and dtype and reused; an in-place
+    update of the weight (an optimizer step) rebuilds it on the next call."""
+    w = torch.nn.Parameter(torch.randn(24, 16, 3, 3))
+    built = RB.fused_resnet_block.layouts_built
+    first = RB.cached_weight_layout(w, torch.bfloat16)
+    assert RB.cached_weight_layout(w, torch.bfloat16) is first
+    assert RB.fused_resnet_block.layouts_built == built + 1
+    other = RB.cached_weight_layout(w, torch.float32)  # another dtype, another layout
+    assert other.dtype == torch.float32 and RB.fused_resnet_block.layouts_built == built + 2
+    with torch.no_grad():
+        w.mul_(2)
+    second = RB.cached_weight_layout(w, torch.bfloat16)
+    assert second is not first and RB.fused_resnet_block.layouts_built == built + 3
+    assert torch.equal(second.float(), 2 * first.float())
+    key = (id(w), torch.bfloat16)
+    del w
+    assert key not in RB._layouts  # dropped with the weight
+
+
+def test_weight_layout_is_rebuilt_when_the_storage_moves():
+    """``w.data = t`` (as ``Module.to`` and weight swaps do) keeps the
+    tensor and its version but not its storage: the next call lays out t."""
+    w = torch.nn.Parameter(torch.randn(24, 16, 3, 3))
+    first = RB.cached_weight_layout(w, torch.bfloat16)
+    version = w._version
+    w.data = 3 * w.data
+    assert w._version == version
+    built = RB.fused_resnet_block.layouts_built
+    second = RB.cached_weight_layout(w, torch.bfloat16)
+    assert RB.fused_resnet_block.layouts_built == built + 1
+    assert torch.equal(second, RB.tc_weight_layout(w, torch.bfloat16)) and not torch.equal(second, first)
+    assert RB.cached_weight_layout(w, torch.bfloat16) is second
+
+
+def _split_conv(single_pass):
+    """F.conv2d as the kernel's fp32 route computes it: split TF32,
+    lo*hi + hi*lo + hi*hi summed in fp32; or one TF32 product (a control)."""
+    def conv2d(x, w, padding=0):
+        (xh, xl), (wh, wl) = RB.tf32_split(x), RB.tf32_split(w)
+        if single_pass:
+            return F.conv2d(xh, wh, padding=padding)
+        return F.conv2d(xl, wh, padding=padding) + F.conv2d(xh, wl, padding=padding) + F.conv2d(xh, wh, padding=padding)
+    return types.SimpleNamespace(conv2d=conv2d, pad=F.pad)
+
+
+def test_split_tf32_holds_the_fp32_gate_at_512_channels(monkeypatch):
+    """The block at 512 channels (3x3 sums 4608 deep) through split-TF32
+    convolutions agrees with the fp32 plain version within the 2e-5 gate;
+    the same block with one TF32 product a product (the control) does not."""
+    args = _port(_inputs(2, 512, 512, 8, 8, seed=6))
+    args[0] = 0.2 * args[0]  # x at the card check's scale
+    want = RB.resnet_block_reference(*args)
+    errs = {}
+    for single in (False, True):
+        monkeypatch.setattr(RB, "F", _split_conv(single))
+        errs[single] = (RB.resnet_block_reference(*args) - want).abs().max().item()
+    assert errs[False] <= 2e-5 < errs[True], errs
+
+
+def test_bf16_operands_need_two_products():
+    """bf16 values are exact in TF32: their lo part is 0, so a product with
+    a bf16 operand needs two TF32 products (hi*hi + lo*hi), not three."""
+    x = torch.randn(4096).bfloat16().float()
+    hi, lo = RB.tf32_split(x)
+    assert torch.equal(hi, x) and not lo.any()
+    y = torch.randn(4096)
+    (yh, yl) = RB.tf32_split(y)
+    assert torch.equal(yl * hi + yh * lo + yh * hi, yl * hi + yh * hi)
 
 
 def test_unet_fused_resblock_keeps_the_state_dict():
