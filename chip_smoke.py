@@ -16,7 +16,9 @@ Phases, each of which exits non-zero on failure:
      shapes; the fused PreNorm linear-attention block (bf16) vs plain at
      the serving and training shapes and at edges, on inputs where every
      stage of the attention moves the output, with controls (the plain
-     version with a stage altered) that must read above the tolerance;
+     version with a stage altered) that must read above the tolerance, and
+     each launch of a serving call timed apart (median under
+     torch.profiler);
      the GroupNorm+FiLM+SiLU, ResnetBlock and flash cosine-attention
      kernels vs plain at every call shape of the default UNet at batch 8
      and 16, in fp32 and bf16, and at edges, each with its controls;
@@ -25,7 +27,11 @@ Phases, each of which exits non-zero on failure:
      of one flash call at (8, 4, 32, 256) timed apart under torch.profiler;
      the ResnetBlock's 1x1 residual conv at every residual call shape
      by the kernel the path takes and by conv_tc (x one element off), each
-     held against the plain version and timed;
+     held against the plain version and timed; the ResnetBlock's backward
+     kernels at every call shape of a training step in fp32 and bf16 and at
+     edges, against the plain backward on the same saved tensors and
+     autograd of the plain block, with controls, timed beside the flag-off
+     block's cuDNN backward;
   4. serving path: a full-width TEDM model (random weights from a seed)
      saved with the port's save_checkpoint and served through Predictor for
      4 requests; launches per request; one request traced with
@@ -59,17 +65,20 @@ Phases, each of which exits non-zero on failure:
      ResnetBlock's tensor-core weight layouts are built in the first
      request only;
  13. opt-in training: backbone steps at batch 16 with ``--use_pallas_resblock
-     --use_pallas_flash`` in fp32 and bf16, each with a profiled step and a
-     batch-2 step against the CPU plain path, and TEDM head steps with
+     --use_pallas_flash`` in fp32 and bf16 (19 ResnetBlock forward and 19
+     backward launches a step), each with a profiled step and a batch-2
+     step against the CPU plain path, and TEDM head steps with
      ``--use_pallas_groupnorm``;
 then one JSON line listing every kernel and the final JSON status line.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -111,7 +120,12 @@ BF16_STEP_GRAD_TOL = 5e-2
 OPT_IN_STEPS = 8               # backbone steps of each opt-in training run
 HEAD_STEPS = 2                 # TEDM head steps with --use_pallas_groupnorm
 GN, RB, FA = "fused_group_norm_film_silu", "fused_resnet_block", "flash_cosine_attention"
-KERNELS = ("linear_attention", "linear_attention_backward", "prenorm_linear_attention", GN, RB, FA)
+RBB = "fused_resnet_block_backward"
+KERNELS = ("linear_attention", "linear_attention_backward", "prenorm_linear_attention", GN, RB, RBB, FA)
+# B.4's backward against its plain version, relative to each gradient's
+# largest entry: fp32 at KERNELS.json's VJP tolerance; bf16 at the bf16 step
+# gate (the data gradients are rounded to bf16 from sums in another order)
+RB_BWD_TOL = {torch.float32: LA_BWD_TOL, torch.bfloat16: BF16_STEP_GRAD_TOL}
 
 
 def fail(msg: str) -> None:
@@ -159,9 +173,10 @@ class Phase:
 KERNEL_KINDS = (
     ("linear_attention forward kernel", ("context_partials", "combine_context", "apply_context")),
     ("linear_attention backward kernel", ("grad_partials", "combine_grad", "apply_grad")),
-    ("prenorm_linear_attention kernel", ("kv_partials", "::combine(", "apply_block")),
+    ("prenorm_linear_attention kernel", ("kv_context", "apply_block")),
     ("fused_group_norm_film_silu kernel", ("gn_partials", "gn_apply")),
     ("fused_resnet_block kernel", ("conv_tc", "res_tc", "gn_coefs", "finish_identity")),
+    ("fused_resnet_block backward kernel", ("gn_bwd_reduce", "gn_bwd_coefs", "gn_bwd_apply")),
     ("flash_cosine_attention kernel", ("row_norms", "flash_fwd", "flash_row")),
     ("convolution / gemm", ("conv", "cudnn", "xmma", "gemm", "fft", "dgrad", "wgrad",
                             "pointwise_mult_and_sum_complex")),
@@ -209,45 +224,65 @@ def profile(label: str, fn) -> list:
     return list(prof.key_averages())
 
 
-def device_events(fn, calls: int = 1) -> list:
-    """The device kernels of ``calls`` calls of ``fn`` in one torch.profiler
-    session, in launch order, less user annotations."""
+def call_launches(label: str, fn, calls: int = 10) -> list:
+    """[name, median device ms] of each kernel that one call of ``fn``
+    launches, in launch order, after a warm-up call: ``calls`` calls in one
+    torch.profiler session, each after a spin kernel that marks where it
+    starts, and the launches that most calls show (at least half of them),
+    each timed by its median over those calls. A session can lose device
+    events (the first of a session, seen twice in a row on an H100 with
+    torch 2.11, or some at random); a call that lost one shows other
+    launches and is left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA and not e.is_user_annotation),
-                  key=lambda e: e.time_range.start)
-
-
-def call_launches(label: str, fn) -> list:
-    """[name, device ms] of each kernel one call of ``fn`` launches, after a
-    warm-up call. A profiler session now and then loses some or all of its
-    device events, so sessions are asked until two in a row give the same
-    kernels."""
     fn()
-    seen = None
-    for _ in range(6):
-        rows = [[e.name, e.time_range.elapsed_us() / 1e3] for e in device_events(fn)]
-        if rows and seen == [name for name, _ in rows]:
-            return rows
-        seen = [name for name, _ in rows]
-    fail(f"no two profiler sessions in a row saw the same launches of {label}")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)  # absorbs the loss of a session's first event
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                torch.cuda._sleep(100)
+                fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA and not e.is_user_annotation),
+                        key=lambda e: e.time_range.start)
+        per_call, current = [], None
+        for e in events:
+            if "spin_kernel" in e.name:
+                if current:
+                    per_call.append(current)
+                current = []
+            elif current is not None:
+                current.append(e)
+        if current:
+            per_call.append(current)
+        lists = collections.Counter(tuple(e.name for e in c) for c in per_call)
+        if lists:
+            names, n = lists.most_common(1)[0]
+            if n >= calls // 2:
+                chosen = [c for c in per_call if tuple(e.name for e in c) == names]
+                return [[name, statistics.median(c[i].time_range.elapsed_us() / 1e3 for c in chosen)]
+                        for i, name in enumerate(names)]
+    fail(f"{label}: no list of launches in half of {calls} calls, in 3 profiler sessions")
 
 
-def launch_profile(label: str, fn) -> list:
-    """One call of ``fn`` under torch.profiler: each device kernel it
-    launched, in launch order, with its device ms, beside their sum.
+def launch_profile(label: str, fn, calls: int = 10) -> list:
+    """Each device kernel that a call of ``fn`` launches, in launch order,
+    with its median device ms (``call_launches``), printed beside their sum.
     Returns [name, ms] per launch."""
-    rows = call_launches(label, fn)
+    rows = call_launches(label, fn, calls)
     print(f"launches of {label}: {len(rows)}, device ms summed {sum(ms for _, ms in rows):.4f}", flush=True)
     for name, ms in rows:
         print(f"  {ms:9.4f} ms  {name[:110]}", flush=True)
     return rows
+
+
+def short_name(kernel: str) -> str:
+    """A device kernel's function name without namespace, template or arguments."""
+    found = re.findall(r"::(\w+)", kernel)
+    return found[0] if found else kernel[:40]
 
 
 def read_metrics(run_dir: str) -> list:
@@ -397,7 +432,7 @@ def block_controls(args):
 def check_block(ab, gen):
     """The fused block's kernel vs its plain version at the serving (batch 8)
     and training (batch 16) shapes and at edges; per-shape rows with times."""
-    from tedm_tpu_torch.kernels.bounds import BF16_FLOPS_PER_S, bound
+    from tedm_tpu_torch.kernels.bounds import bound, prenorm_attention_call
 
     rows = {}
     with torch.no_grad():
@@ -407,21 +442,21 @@ def check_block(ab, gen):
             b, c, n = shape
             args = block_inputs(gen, b, c, n)
             err, control = block_errors(ab, args, shape)
-            # x read and out written (bf16), the weights read (fp32); the qkv and
-            # to_out products and the two head-blocked attention contractions
-            # on the bf16 tensor cores
             row = {
                 "shape": list(shape),
                 "max_abs_err": err,
                 "min_control_err": control,
                 "ms": device_ms(lambda: ab.prenorm_linear_attention(*args)),
                 "plain_ms": device_ms(lambda: ab.prenorm_linear_attention_reference(*args)),
-                **bound(2 * 2 * b * c * n + 4 * (4 * 128 * c + 3 * c),
-                        2 * b * n * 4 * 128 * c + 4 * b * 128 * 32 * n, BF16_FLOPS_PER_S),
+                **bound(*prenorm_attention_call(b, c, n)),
             }
+            if b == 8:  # each launch of a serving call, median over calls
+                row["per_launch"] = call_launches(f"prenorm_linear_attention {shape}",
+                                                  lambda: ab.prenorm_linear_attention(*args), REPS)
             rows[shape] = row
+            split = "".join(f", {short_name(name)} {ms:.4f}" for name, ms in row.get("per_launch", []))
             print(f"prenorm_linear_attention {shape}: max_abs_err {err:.3e} (tol {BLOCK_TOL}; controls "
-                  f">= {control:.3f}) kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms bound "
+                  f">= {control:.3f}) kernel {row['ms']:.4f} ms{split} plain {row['plain_ms']:.4f} ms bound "
                   f"{1e3 * row['bound_ms']:.2f} us ({row['bound_by']})", flush=True)
             del args
         wide = (0.5 * torch.randn(2, 3 * 64, 1000, generator=gen, device="cuda")).bfloat16()
@@ -456,7 +491,7 @@ def calls_sum(rows, keys) -> dict:
     """Times and bound summed over calls, one a key as listed, with the
     flag-off block's and the library call's times where the rows have them."""
     return {k: sum(rows[key][k] for key in keys)
-            for k in ("ms", "plain_ms", "bound_ms", "default_ms", "library_ms") if k in rows[keys[0]]}
+            for k in ("ms", "plain_ms", "bound_ms", "default_ms", "recompute_ms", "library_ms") if k in rows[keys[0]]}
 
 
 def gate(dtype) -> float:
@@ -605,7 +640,7 @@ def rb_check(rb, args, what):
 
 def default_block(args):
     """The port's flag-off ResnetBlock (no time MLP) on the same weights and
-    FiLM rows, in x's dtype: a thunk of its forward."""
+    FiLM rows, in x's dtype: a thunk of its forward (``.module`` the block)."""
     from tedm_tpu_torch.models.unet import ResnetBlock
 
     x, w1, b1, g1, be1, scale, shift, w2, b2, g2, be2, wres, bres = args
@@ -620,23 +655,9 @@ def default_block(args):
     for p, v in pairs:
         p.data.copy_(v)
     ss = None if scale is None else (scale, shift)
-    return lambda: m.block2(m.block1(x, ss)) + m.res_conv(x)
-
-
-def last_launch_ms(label: str, fn, calls: int = REPS) -> tuple:
-    """(name, median device ms) of the last kernel that a call of ``fn``
-    launches, over ``calls`` calls in one profiler session. The kernel is
-    found by name, so that a session which loses some device events still
-    times the rest; it must be launched once a call."""
-    names = [name for name, _ in call_launches(label, fn)]
-    last = names[-1]
-    if names.count(last) != 1:
-        fail(f"{label} launches its last kernel {names.count(last)} times a call: {last}")
-    for _ in range(3):
-        times = [e.time_range.elapsed_us() / 1e3 for e in device_events(fn, calls) if e.name == last]
-        if calls // 2 <= len(times) <= calls:
-            return last, statistics.median(times)
-    fail(f"{label}: {len(times)} launches of {last} in {calls} calls")
+    forward = lambda: m.block2(m.block1(x, ss)) + m.res_conv(x)
+    forward.module = m
+    return forward
 
 
 def residual_routes(rb, gen) -> list:
@@ -658,8 +679,8 @@ def residual_routes(rb, gen) -> list:
                 row = {"shape": list(shape), "dtype": dtype_name(dtype), "path_kernel": want}
                 for key, xs, kernel in (("path", x, want), ("conv_tc", off, "conv_tc")):
                     rb_check(rb, (xs,) + args[1:], (shape, dtype, key))
-                    name, row[f"{key}_ms"] = last_launch_ms(f"fused_resnet_block {shape} {row['dtype']} x {key}",
-                                                            lambda: rb.fused_resnet_block(xs, *args[1:]))
+                    name, row[f"{key}_ms"] = call_launches(f"fused_resnet_block {shape} {row['dtype']} x {key}",
+                                                           lambda: rb.fused_resnet_block(xs, *args[1:]), REPS)[-1]
                     if kernel not in name:
                         fail(f"fused_resnet_block {shape} {dtype_name(dtype)} with x {key} ended in {name}, not {kernel}")
                 rows.append(row)
@@ -711,6 +732,113 @@ def check_resblock(rb, gen):
     print("fused_resnet_block edges (N = 1, 17, 255; 8x12; C = 16; B = 1, 3; no FiLM; identity and 1x1 "
           "residual; a strided x): within tolerance", flush=True)
     return rows, per_launch, residual_routes(rb, gen)
+
+
+def rb_backward_errors(got, want) -> float:
+    """The largest error of any gradient present in both, relative to that
+    gradient's largest entry. Both have the same gradients, or the
+    ``want`` of a control has fewer."""
+    if any(a is None and b is not None for a, b in zip(got, want)):
+        fail(f"a backward gave no gradient where its plain version gives one: {[a is None for a in got]}")
+    return max(rel_err(a.float(), b.float()) for a, b in zip(got, want) if a is not None and b is not None)
+
+
+def default_block_backward(args, dout):
+    """The flag-off ResnetBlock's cuDNN backward on the same weights: a thunk
+    that runs it once over one retained forward graph."""
+    x = args[0].detach().requires_grad_()
+    forward = default_block((x,) + tuple(args[1:]))
+    with torch.enable_grad():
+        out = forward()
+    params = [x, *forward.module.parameters()]
+    return lambda: torch.autograd.grad(out, params, dout, retain_graph=True)
+
+
+def plain_recompute(rb, args, dout):
+    """The block's earlier backward: the plain block recomputed under
+    autograd and differentiated, as a thunk."""
+    def run():
+        leaves = [None if t is None else t.detach().requires_grad_() for t in args]
+        with torch.enable_grad():
+            out = rb.resnet_block_reference(*leaves)
+            return torch.autograd.grad(out, [t for t in leaves if t is not None], dout)
+    return run
+
+
+def check_resblock_backward(rb, gen):
+    """B.4's backward kernels (from the saved h1, h2 and statistics of the
+    kernel's own forward) against their plain version on the same saved
+    tensors and against autograd of the plain block, at the 19 call shapes
+    of a training step (batch 16) in fp32 and bf16 and at edges, with its
+    controls (conv2's weight gradient over h1n padded after GN1+SiLU; GN1's
+    backward without FiLM); per-call rows with the kernel's, the plain
+    version's, the plain recompute's (the earlier backward) and the flag-off
+    block's cuDNN backward's times; and the launches of one backward at two
+    shapes."""
+    from tedm_tpu_torch.kernels.bounds import bound, resblock_backward_call
+
+    rows, per_launch = {}, {}
+    everything = (True,) * 13
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = RB_BWD_TOL[dtype]
+            cases = [(s, True) for s in dict.fromkeys(rb_shapes(16))]
+            cases += [((1, 64, 64, 1, 1), True), ((3, 16, 24, 1, 17), True), ((1, 32, 16, 15, 17), True),
+                      ((3, 16, 16, 8, 12), False), ((2, 24, 16, 8, 12), False)]
+            for shape, film in cases:
+                args = rb_inputs(gen, shape, dtype, film)
+                b, cin, cout, h, w = shape
+                dout = torch.randn(b, cout, h, w, generator=gen, device="cuda").to(dtype)
+                _, saved = rb._forward(*args, 8, 1e-5)
+                got = rb._backward(*args, saved, dout, 8, everything)
+                v = rb.saved_views(saved, b, cout, h, w, 8)
+                plain = lambda **kw: rb.resnet_block_backward_reference(*args, v["h1"], v["h2"], dout, **kw)
+                want = plain()
+                if [g is None for g in got] != [g is None for g in want]:
+                    fail(f"fused_resnet_block backward at {shape} gives gradients {[g is not None for g in got]}, "
+                         f"its plain version {[g is not None for g in want]}")
+                err = rb_backward_errors(got, want)
+                with torch.enable_grad():
+                    auto = plain_recompute(rb, args, dout)()
+                auto_err = rb_backward_errors([g for g, a in zip(got, args) if a is not None], auto)
+                what = (shape, dtype_name(dtype), film)
+                if not (err <= tol and auto_err <= tol):
+                    fail(f"fused_resnet_block backward disagrees with its plain version at {what}: {err}, "
+                         f"with autograd of the plain block: {auto_err} (tol {tol})")
+                controls = {"conv2's weight gradient over h1n padded after GN1+SiLU": plain(pad_after_norm=True)}
+                if film:
+                    controls["GN1's backward without FiLM"] = plain(film_dropped=True)
+                reads = {k: rb_backward_errors(got, c) for k, c in controls.items()}
+                if not min(reads.values()) > tol:
+                    fail(f"fused_resnet_block backward check at {what} cannot see a control: {reads}")
+                if shape[0] != 16:
+                    continue
+                row = {"shape": list(shape), "dtype": dtype_name(dtype), "max_abs_err": max(
+                           (a.float() - r.float()).abs().max().item() for a, r in zip(got, want) if a is not None),
+                       "max_rel_err": err, "autograd_rel_err": auto_err, "min_control_err": min(reads.values()),
+                       "ms": device_ms(lambda: rb._backward(*args, saved, dout, 8, everything)),
+                       "plain_ms": device_ms(lambda: rb.resnet_block_backward_reference(
+                           *args, v["h1"], v["h2"], dout)),
+                       "recompute_ms": device_ms(plain_recompute(rb, args, dout)),
+                       "library_ms": device_ms(default_block_backward(args, dout)),
+                       **bound(*resblock_backward_call(b, cin, cout, h * w, args[0].element_size()))}
+                rows[(shape, dtype)] = row
+                print(f"fused_resnet_block backward {shape} {row['dtype']}: relative error {err:.3e} (autograd of the "
+                      f"plain block {auto_err:.3e}; tol {tol}; controls >= {row['min_control_err']:.3f}) kernel "
+                      f"{row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms plain recompute {row['recompute_ms']:.4f} "
+                      f"ms flag-off block's cuDNN backward {row['library_ms']:.4f} ms bound "
+                      f"{1e3 * row['bound_ms']:.2f} us ({row['bound_by']})", flush=True)
+                if shape in [(16, 64, 64, 128, 128), (16, 768, 512, 16, 16)]:
+                    label = f"fused_resnet_block backward {shape} {dtype_name(dtype)}"
+                    per_launch[label] = launch_profile(label, lambda: rb._backward(*args, saved, dout, 8, everything))
+                    mine = sum(any(k in name for k in ("gn_bwd_reduce", "gn_bwd_coefs", "gn_bwd_apply"))
+                               for name, _ in per_launch[label])
+                    if mine != 6:
+                        fail(f"{label} made {mine} GroupNorm backward launches, not 6")
+                del args, saved, got, want, v, auto, controls
+    print("fused_resnet_block backward edges (N = 1, 17, 255; 8x12; C = 16; B = 1, 3; no FiLM; identity and 1x1 "
+          "residual): within tolerance", flush=True)
+    return rows, per_launch
 
 
 # ------------------------------------------------------------------ B.5
@@ -775,6 +903,7 @@ def counters() -> dict:
             "prenorm_linear_attention": (attn_block.prenorm_linear_attention, "launches"),
             GN: (groupnorm.fused_group_norm_film_silu, "launches"),
             RB: (resblock.fused_resnet_block, "launches"),
+            RBB: (resblock.fused_resnet_block, "backward_launches"),
             FA: (flash_attention.flash_cosine_attention, "launches")}
 
 
@@ -795,12 +924,15 @@ def launches(**counts) -> dict:
 def per_unet_call(mixed: bool, flags=(), backward: bool = False) -> dict:
     """Launches of one UNet forward (and backward) of the path: 8 linear
     attentions (fp32) or fused blocks (bf16), and the opt-in kernels its
-    flags switch on; ResnetBlock wins over GroupNorm."""
+    flags switch on (the ResnetBlock's backward in a backward too);
+    ResnetBlock wins over GroupNorm."""
     counts = {"prenorm_linear_attention": 8} if mixed else {"linear_attention": 8}
     if backward and not mixed:
         counts["linear_attention_backward"] = 8
     if "--use_pallas_resblock" in flags:
         counts[RB] = 19
+        if backward:
+            counts[RBB] = 19
     elif "--use_pallas_groupnorm" in flags:
         counts[GN] = 38
     if "--use_pallas_flash" in flags:
@@ -1165,6 +1297,7 @@ def main() -> None:
         block_rows = check_block(ab, gen)
         gn_rows = check_groupnorm(gn, gen)
         rb_rows, rb_launches, rb_residual = check_resblock(rb, gen)
+        rbb_rows, rbb_launches = check_resblock_backward(rb, gen)
         fa_rows, fa_launches = check_flash(fa, gen)
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1274,6 +1407,23 @@ def main() -> None:
         entry(RB, "tedm_tpu_torch/kernels/csrc/resblock.cu", "tedm_tpu/ops/pallas/resblock.py:199", rb_rows,
               rb_req, [(s, torch.float32) for s in rb_shapes(16)], per_launch=rb_launches,
               residual_routes=rb_residual),
+        {
+            "name": RBB, "route": "cuda", "source": "tedm_tpu_torch/kernels/csrc/resblock_backward.cu",
+            "replaces": "tedm_tpu/ops/pallas/resblock.py:303",
+            "launches": sum(paths[RBB].values()), "launches_by_path": paths[RBB],
+            "max_abs_err": max(r["max_abs_err"] for r in rbb_rows.values() if r["dtype"] == "fp32"),
+            "max_abs_err_bf16": max(r["max_abs_err"] for r in rbb_rows.values() if r["dtype"] == "bf16"),
+            "max_rel_err": max(r["max_rel_err"] for r in rbb_rows.values() if r["dtype"] == "fp32"),
+            "max_rel_err_bf16": max(r["max_rel_err"] for r in rbb_rows.values() if r["dtype"] == "bf16"),
+            "min_control_err": min(r["min_control_err"] for r in rbb_rows.values()),
+            # times and bound of one training step's 19 backward calls (batch 16) in
+            # fp32, bf16 beside; library_ms: the flag-off block's cuDNN backward;
+            # recompute_ms: the earlier backward, the plain block recomputed under autograd
+            **calls_sum(rbb_rows, [(s, torch.float32) for s in rb_shapes(16)]),
+            "bound_by": bounded([rbb_rows[(s, torch.float32)] for s in rb_shapes(16)]),
+            "bf16": calls_sum(rbb_rows, [(s, torch.bfloat16) for s in rb_shapes(16)]),
+            "per_shape": list(rbb_rows.values()), "per_launch": rbb_launches,
+        },
         # the mid attention, one call; library_ms: F.scaled_dot_product_attention
         # (scale=16) on pre-normalised q and k
         entry(FA, "tedm_tpu_torch/kernels/csrc/flash_attention.cu", "tedm_tpu/ops/pallas/flash_attention.py:114",

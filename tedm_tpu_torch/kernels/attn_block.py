@@ -24,7 +24,10 @@ Weights come in the port's conv layout: ``w_qkv`` (3*heads*dim_head, C[, 1,
 1]), ``w_out`` (C, heads*dim_head[, 1, 1]), ``b_out`` (C,), the gains ``g_in``
 and ``g_out`` (C,) or (1, C, 1, 1). They stay fp32; a product in the compute
 dtype rounds both operands to it and sums in fp32, as
-``preferred_element_type=jnp.float32`` does.
+``preferred_element_type=jnp.float32`` does. The kernel reads the two
+matrices in bf16 in the fragment order of its products
+(``fragment_layout``), built once per weight version and storage
+(``kernels/layouts.py``): once for a served model, once a step in training.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import ctypes
 import functools
 import torch
 
-from tedm_tpu_torch.kernels import _build
+from tedm_tpu_torch.kernels import _build, layouts
 
 HEADS, DIM_HEAD = 4, 32  # the kernel's compiled head layout, the UNet's only one
 SCALE = DIM_HEAD ** -0.5
@@ -96,6 +99,29 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def fragment_layout(w: torch.Tensor) -> torch.Tensor:
+    """A (M, K) weight, M and K multiples of 16, as the kernel's mma.sync
+    m16n8k16 products read their A operand: bf16, per 16 x 16 tile (m-tile,
+    k-tile) in that order, the 32 lanes' fragments, lane l = 4 g + t holding
+    rows (g, g + 8) x columns (2t, 2t + 1, 2t + 8, 2t + 9) as a0 = (g, 2t..),
+    a1 = (g + 8, 2t..), a2 = (g, 2t + 8..), a3 = (g + 8, 2t + 8..): one
+    16-byte load a lane a fragment."""
+    m, k = w.shape
+    t = w.detach().to(torch.bfloat16).reshape(m // 16, 2, 8, k // 16, 2, 4, 2)  # (mt, r, g, kt, c, t, pair)
+    return t.permute(0, 3, 2, 5, 4, 1, 6).contiguous()  # (mt, kt, g, t, c, r, pair): a_j, j = 2c + r
+
+
+def _fragments(w: torch.Tensor, shape) -> torch.Tensor:
+    """w's fragment layout, cached per weight version and storage
+    (``layouts.cached_layout``), counted in
+    ``prenorm_linear_attention.layouts_built``."""
+    def build(t: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            prenorm_linear_attention.layouts_built += 1
+            return fragment_layout(t.reshape(shape))
+    return layouts.cached_layout(w, "mma.sync A fragments", build)
+
+
 def _check(x: torch.Tensor) -> None:
     if x.dtype != torch.bfloat16:
         raise TypeError(
@@ -112,16 +138,16 @@ def _check(x: torch.Tensor) -> None:
 
 
 def _weights(x, g_in, w_qkv, w_out, b_out, g_out):
-    """The weights as contiguous fp32 vectors and matrices on x's device."""
+    """The gains and bias as contiguous fp32 vectors, the two matrices in
+    their fragment layouts, on x's device."""
     c = x.shape[1]
     hidden = HEADS * DIM_HEAD
     shapes = ((g_in, (c,)), (w_qkv, (3 * hidden, c)), (w_out, (c, hidden)), (b_out, (c,)), (g_out, (c,)))
-    out = []
     for t, shape in shapes:
         if t.device != x.device or t.numel() != torch.Size(shape).numel():
             raise ValueError(f"a weight of shape {tuple(t.shape)} on {t.device} for x on {x.device}, C={c}")
-        out.append(t.detach().float().reshape(shape).contiguous())
-    return out
+    vec = lambda t: t.detach().float().reshape(c).contiguous()
+    return vec(g_in), _fragments(w_qkv, (3 * hidden, c)), _fragments(w_out, (c, hidden)), vec(b_out), vec(g_out)
 
 
 def _forward(x, g_in, w_qkv, w_out, b_out, g_out) -> torch.Tensor:
@@ -185,3 +211,4 @@ def prenorm_linear_attention(
 
 
 prenorm_linear_attention.launches = 0
+prenorm_linear_attention.layouts_built = 0  # fragment layouts of W_qkv and W_out built (_fragments)

@@ -17,7 +17,8 @@ the kernel takes.
 
 prints the bound of each kernel's calls in one serving request (batch 8:
 one image at 8 timesteps) and in one training step (batch 16), in fp32 and,
-for the kernels that run in both dtypes, in bf16. ``chip_smoke.py`` takes
+for the kernels that run in both dtypes, in bf16 (the ResnetBlock's
+backward is a training step's only). ``chip_smoke.py`` takes
 the per-call functions for the shapes it times.
 """
 
@@ -61,6 +62,17 @@ def unet_stages() -> Tuple[List[Tuple[int, int]], List[Tuple[int, int, int]]]:
     return attn, res
 
 
+def prenorm_attention_call(batch: int, c: int, n: int) -> Tuple[float, float, float]:
+    """(bytes, operations, rate) of one bf16 Residual(PreNorm(LinearAttention))
+    over (batch, c, n): x read and out written in bf16, W_qkv and W_out
+    read in bf16 (the kernel's fragment layout, built once per weight
+    version) and the gains and bias in fp32; the qkv and to_out products and
+    the two head-blocked attention contractions on the bf16 tensor cores."""
+    hidden = HEADS * DIM_HEAD
+    return (2 * 2 * batch * c * n + 2 * (3 * hidden * c + hidden * c) + 4 * 3 * c,
+            2 * batch * n * (3 * hidden * c + hidden * c) + 4 * batch * hidden * DIM_HEAD * n, BF16_FLOPS_PER_S)
+
+
 def groupnorm_call(batch: int, c: int, hw: int, itemsize: int = 4) -> Tuple[float, float, float]:
     """(bytes, operations, rate) of one GroupNorm+FiLM+SiLU over (batch, c,
     hw pixels): x read and out written in their dtype; about 10 operations
@@ -76,6 +88,20 @@ def resblock_call(batch: int, c_in: int, c_out: int, hw: int, itemsize: int = 4)
     weights = 9 * c_in * c_out + 9 * c_out * c_out + (c_in * c_out if c_in != c_out else 0)
     return (itemsize * batch * (c_in + c_out) * hw + 4 * weights, 2 * batch * hw * weights,
             BF16_FLOPS_PER_S if itemsize == 2 else SPLIT_TF32_FLOPS_PER_S)
+
+
+def resblock_backward_call(batch: int, c_in: int, c_out: int, hw: int, itemsize: int = 4) -> Tuple[float, float, float]:
+    """(bytes, operations, rate) of one whole ResnetBlock's backward: x and
+    dout read and dx written in their dtype, the fp32 h1 and h2 the forward
+    keeps read, the fp32 weights read and their gradients written; each of
+    the three convolutions' data and weight gradients (twice the forward's
+    operations; conv1's data gradient only where x needs it, which the
+    UNet's first block's does too), on the tensor cores in bf16, or as fp32
+    products outside them (TF32 off)."""
+    weights = 9 * c_in * c_out + 9 * c_out * c_out + (c_in * c_out if c_in != c_out else 0)
+    acts = itemsize * batch * hw * (2 * c_in + c_out) + 4 * 2 * batch * c_out * hw
+    return (acts + 2 * 4 * weights, 2 * 2 * batch * hw * weights,
+            BF16_FLOPS_PER_S if itemsize == 2 else FP32_FLOPS_PER_S)
 
 
 def flash_call(batch: int, n: int, itemsize: int = 4) -> Tuple[float, float, float]:
@@ -107,14 +133,8 @@ def kernel_bounds(batch: int) -> Dict[str, Dict]:
     # 10 * B*h*d*d*N (ops/pallas/linear_attention.py:152)
     add("linear_attention backward", [(7 * 4 * batch * hidden * s * s, 10 * batch * hidden * DIM_HEAD * s * s)
                                       for _, s in attn])
-    # 2: the bf16 path's whole Residual(PreNorm(LinearAttention)): x read and
-    # out written (bf16), the qkv and to_out weights read; the two 1x1 convs
-    # and the attention's contractions on the bf16 tensor cores
-    add("prenorm_linear_attention (bf16)", [
-        (2 * (2 * batch * c * s * s + 3 * hidden * c + hidden * c),
-         2 * batch * s * s * (3 * hidden * c + hidden * c) + 4 * batch * hidden * DIM_HEAD * s * s,
-         BF16_FLOPS_PER_S)
-        for c, s in attn])
+    # 2: the bf16 path's whole Residual(PreNorm(LinearAttention))
+    add("prenorm_linear_attention (bf16)", [prenorm_attention_call(batch, c, s * s) for c, s in attn])
     mid = SIZE >> (len(MULTS) - 1)
     for suffix, itemsize in (("", 4), (" (bf16)", 2)):
         # 3: two per ResnetBlock, of its output width
@@ -123,6 +143,9 @@ def kernel_bounds(batch: int) -> Dict[str, Dict]:
         # 4: the whole ResnetBlock; its bound is its convolutions' arithmetic
         add("fused_resnet_block" + suffix, [resblock_call(batch, c_in, c_out, s * s, itemsize)
                                             for c_in, c_out, s in res])
+        # 4b: its backward (training only)
+        add("fused_resnet_block backward" + suffix, [resblock_backward_call(batch, c_in, c_out, s * s, itemsize)
+                                                     for c_in, c_out, s in res])
         # 5: the mid attention
         add("flash_cosine_attention" + suffix, [flash_call(batch, mid * mid, itemsize)])
     return out

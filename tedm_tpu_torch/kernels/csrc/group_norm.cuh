@@ -89,4 +89,10 @@ __device__ __forceinline__ float silu_affine(float x, float2 ab) {
   return y / (1.f + expf(-y));
 }
 
+// d SiLU(y) / dy = s (1 + y (1 - s)), s = sigmoid(y)
+__device__ __forceinline__ float silu_grad(float y) {
+  const float s = 1.f / (1.f + expf(-y));
+  return s * fmaf(y, 1.f - s, 1.f);
+}
+
 }  // namespace gn

@@ -22,8 +22,9 @@
 // so here the block is five launches, three of them one implicit-GEMM routine (conv_tc):
 //   a. conv_tc<CONV1>: h1 = conv3x3(x) + b1, written fp32 to scratch, and per (channel, 8x8
 //      tile) partial sums and sums of squares of h1 from its epilogue (one writer each);
-//   b. gn_coefs: per (batch, group), the partials combined into mean and rstd, and per
-//      (batch, channel) the affine of GN1 with the channel's FiLM scale and shift;
+//   b. gn_coefs: per (batch, group), the partials combined into mean and rstd (kept for the
+//      backward), and per (batch, channel) the affine of GN1 with the channel's FiLM scale and
+//      shift;
 //   c. conv_tc<CONV2>: h2 = conv3x3(h1n) + b2, whose prologue applies GN1's affine and SiLU to
 //      each h1 value it stages and rounds it to T; the zero padding stays zero (the padding is
 //      of h1n, not of h1); partials of h2 as in (a);
@@ -59,6 +60,9 @@
 //     deterministic, no atomics. Or, for the residual, GN2 + SiLU + the add and the cast.
 // Enough blocks: at the deepest, narrowest call (16^2, 768 -> 512 channels) batch 8 gives
 // 4 tiles x 8 channel blocks x 8 = 256 blocks for 132 SMs.
+// h1, h2, the two affines and the group statistics go to the `saved` buffer (rb_saved_floats),
+// which the wrapper keeps for the backward (resblock_backward.cu) when autograd needs the block;
+// the partials go to `scratch`.
 // x may have any batch stride; within a batch element it is contiguous. out is contiguous.
 
 #include <type_traits>
@@ -484,15 +488,18 @@ __global__ void __launch_bounds__(WG_THREADS * RWG, 2) res_tc(ConvArgs a) {
 
 // Per (batch, group): the group's statistics from the partials, then the affine of every
 // channel of the group with its FiLM scale and shift (none when scale and shift are null).
+// The group's (mean, rstd) also go to stats (B, groups), for the backward (resblock_backward.cu).
 template <typename TF>
 __global__ void __launch_bounds__(256)
 gn_coefs(const float* __restrict__ sums, const float* __restrict__ sqs, int c, int groups,
          int tiles, float count, float eps, const float* __restrict__ gamma,
          const float* __restrict__ beta, const TF* __restrict__ scale,
-         const TF* __restrict__ shift, long long film_stride, float2* __restrict__ coef) {
+         const TF* __restrict__ shift, long long film_stride, float2* __restrict__ coef,
+         float2* __restrict__ group_stats) {
   __shared__ float red[32];
   const int g = blockIdx.x, b = blockIdx.y, cg = c / groups;
   const float2 stats = gn::group_stats(sums, sqs, b, g, c, groups, tiles, count, eps, red);
+  if (threadIdx.x == 0) group_stats[b * groups + g] = stats;
   for (int i = threadIdx.x; i < cg; i += blockDim.x) {
     const int ch = g * cg + i;
     const long long film = (long long)b * film_stride + ch;
@@ -593,16 +600,18 @@ int launch(const void* x, long long x_bstride, int batch, int cin, int cout, int
            const void* w1t, const float* b1, const float* g1, const float* be1,
            const void* scale, const void* shift, long long film_stride, const void* w2t,
            const float* b2, const float* g2, const float* be2, const void* wrest,
-           const float* bres, int groups, float eps, float* workspace, void* out,
+           const float* bres, int groups, float eps, float* saved, float* scratch, void* out,
            cudaStream_t s) {
   const int tiles = tiles_of(h, w);
   const long long plane = (long long)h * w, act = (long long)batch * cout * plane;
   const long long part = (long long)batch * cout * tiles;
-  float2* coef1 = reinterpret_cast<float2*>(workspace);
+  float2* coef1 = reinterpret_cast<float2*>(saved);  // the layout of rb_saved_floats
   float2* coef2 = coef1 + (long long)batch * cout;
-  float* h1 = workspace + 4LL * batch * cout;
+  float2* stats1 = coef2 + (long long)batch * cout;
+  float2* stats2 = stats1 + (long long)batch * groups;
+  float* h1 = saved + 4LL * batch * cout + 4LL * batch * groups;
   float* h2 = h1 + act;
-  float* sums1 = h2 + act;
+  float* sums1 = scratch;
   float* sqs1 = sums1 + part;
   float* sums2 = sqs1 + part;
   float* sqs2 = sums2 + part;
@@ -626,7 +635,7 @@ int launch(const void* x, long long x_bstride, int batch, int cin, int cout, int
   RETURN_IF_FAILED((launch_conv<T, 9, CONV1>(a, batch, s)));
   gn_coefs<TF><<<dim3(groups, batch), 256, 0, s>>>(  // (b) GN1 with FiLM
       sums1, sqs1, cout, groups, tiles, count, eps, g1, be1, static_cast<const TF*>(scale),
-      static_cast<const TF*>(shift), film_stride, coef1);
+      static_cast<const TF*>(shift), film_stride, coef1, stats1);
   RETURN_IF_FAILED(cudaGetLastError());
 
   a.in = h1;  // (c) conv2 over GN1+SiLU(h1)
@@ -640,7 +649,7 @@ int launch(const void* x, long long x_bstride, int batch, int cin, int cout, int
   a.sqs = sqs2;
   RETURN_IF_FAILED((launch_conv<T, 9, CONV2>(a, batch, s)));
   gn_coefs<float><<<dim3(groups, batch), 256, 0, s>>>(  // (d) GN2
-      sums2, sqs2, cout, groups, tiles, count, eps, g2, be2, nullptr, nullptr, 0, coef2);
+      sums2, sqs2, cout, groups, tiles, count, eps, g2, be2, nullptr, nullptr, 0, coef2, stats2);
   RETURN_IF_FAILED(cudaGetLastError());
 
   if (wrest == nullptr) {  // (e) the residual
@@ -666,10 +675,17 @@ int launch(const void* x, long long x_bstride, int batch, int cin, int cout, int
 
 extern "C" {
 
-// Floats of scratch that rb_forward needs: two affines, h1 and h2, and their partials.
-long long rb_workspace_floats(int batch, int cout, int h, int w) {
+// Floats of what rb_forward leaves for the backward, in this order: GN1's and GN2's affines
+// (B, Cout) and group statistics (mean, rstd) (B, groups), all float2, then h1 and h2 (B, Cout,
+// H, W) fp32, each 16-byte aligned.
+long long rb_saved_floats(int batch, int cout, int h, int w, int groups) {
   const long long bc = (long long)batch * cout;
-  return 4 * bc + 2 * bc * h * w + 4 * bc * tiles_of(h, w);
+  return 4 * bc + 4LL * batch * groups + 2 * bc * h * w;
+}
+
+// Floats of scratch that rb_forward needs besides: the GroupNorm partials.
+long long rb_scratch_floats(int batch, int cout, int h, int w) {
+  return 4LL * batch * cout * tiles_of(h, w);
 }
 
 // Launches the block's passes on `stream`; returns the first CUDA error, else 0. x_bf16 says
@@ -678,26 +694,26 @@ long long rb_workspace_floats(int batch, int cout, int h, int w) {
 // b * film_stride. w1t, w2t and wrest are the weights in the tensor-core layout of x's dtype
 // (kernels/resblock.py, tc_weight_layout); wrest and bres are null for the identity residual
 // (Cin == Cout). Biases, gains and shifts are fp32 (Cout,). Cout is a multiple of 4 and of
-// groups. out is contiguous (B, Cout, H, W) in x's dtype. The workspace (16-byte aligned)
-// holds rb_workspace_floats(batch, cout, h, w).
+// groups. out is contiguous (B, Cout, H, W) in x's dtype. saved and scratch (16-byte aligned)
+// hold rb_saved_floats and rb_scratch_floats.
 int rb_forward(int x_bf16, int film_bf16, const void* x, long long x_bstride, int batch, int cin,
                int cout, int h, int w, const void* w1t, const float* b1, const float* g1,
                const float* be1, const void* scale, const void* shift, long long film_stride,
                const void* w2t, const float* b2, const float* g2, const float* be2,
-               const void* wrest, const float* bres, int groups, float eps, float* workspace,
-               void* out, void* stream) {
+               const void* wrest, const float* bres, int groups, float eps, float* saved,
+               float* scratch, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!x_bf16)
     return launch<float, float>(x, x_bstride, batch, cin, cout, h, w, w1t, b1, g1, be1, scale,
                                 shift, film_stride, w2t, b2, g2, be2, wrest, bres, groups, eps,
-                                workspace, out, s);
+                                saved, scratch, out, s);
   if (film_bf16)
     return launch<bf16, bf16>(x, x_bstride, batch, cin, cout, h, w, w1t, b1, g1, be1, scale,
                               shift, film_stride, w2t, b2, g2, be2, wrest, bres, groups, eps,
-                              workspace, out, s);
+                              saved, scratch, out, s);
   return launch<bf16, float>(x, x_bstride, batch, cin, cout, h, w, w1t, b1, g1, be1, scale,
                              shift, film_stride, w2t, b2, g2, be2, wrest, bres, groups, eps,
-                             workspace, out, s);
+                             saved, scratch, out, s);
 }
 
 }  // extern "C"

@@ -11,9 +11,14 @@ Pallas ``_kernel`` launched by ``_fwd_pallas``, whose ``jax.custom_vjp``
 backward differentiates ``resnet_block_reference``). On a CUDA tensor
 ``fused_resnet_block`` launches the hand-written Hopper kernels in
 ``csrc/resblock.cu`` (design and bound in that file's header) through an
-``autograd.Function`` whose backward differentiates the plain version, as
-JAX's does; on a CPU tensor it runs ``resnet_block_reference``,
-differentiated by autograd.
+``autograd.Function``. When autograd needs the block, the forward keeps its
+fp32 conv outputs h1 and h2 and the GroupNorms' statistics, and the
+backward runs from them: the GroupNorm (+ FiLM) + SiLU gradients by the
+kernels of ``csrc/resblock_backward.cu``, the convolutions' gradients by
+one convolution backward each in the compute dtype, as XLA runs JAX's
+transposes (``resnet_block_backward_reference`` is its plain version). On
+a CPU tensor it runs ``resnet_block_reference``, differentiated by
+autograd.
 
 Weights come in the port's layout: ``w1`` (Cout, Cin, 3, 3), ``w2`` (Cout,
 Cout, 3, 3), ``wres`` (Cout, Cin, 1, 1) or None, biases and GroupNorm
@@ -25,21 +30,26 @@ kernel reads each conv weight in its tensor-core layout
 of the split-TF32 products. A layout is built once per weight, compute
 dtype, version (``Tensor._version``, which an optimizer's in-place step
 bumps) and storage of the weight, and kept while the weight lives, so a
-served model builds each once and a trained one once per step.
+served model builds each once and a trained one once per step
+(``kernels/layouts.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
-import weakref
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
-from tedm_tpu_torch.kernels import _build
-from tedm_tpu_torch.kernels.groupnorm import check_activation, film_rows, group_norm_film_silu_reference, group_stats
+from tedm_tpu_torch.kernels import _build, layouts
+from tedm_tpu_torch.kernels.groupnorm import (
+    check_activation, film_rows, group_norm_film_silu_backward_reference, group_norm_film_silu_reference,
+    group_stats,
+)
 
 
 def resnet_block_reference(
@@ -58,38 +68,144 @@ def resnet_block_reference(
     added in fp32 and cast once. ``pad_after_norm`` is a control for checks:
     conv2 then pads h after GN1+SiLU, so its border reads SiLU(GN1(0))
     instead of 0."""
+    args = (x, w1, b1, g1, be1, scale, shift, w2, b2, g2, be2, wres, bres)
+    h1, h2 = resnet_block_saved_reference(*args, groups=groups, eps=eps, pad_after_norm=pad_after_norm)
+    h = group_norm_film_silu_reference(h2, g2, be2, None, None, groups, eps)
+    res = x.float() if wres is None else F.conv2d(_rounded(x, x.dtype), _rounded(wres, x.dtype)) + _col(bres)
+    return (h + res).to(x.dtype)
+
+
+def _rounded(t: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+    """t as an operand of a product in cdt: rounded to cdt, held in fp32."""
+    return t.to(cdt).float()
+
+
+def _col(t: torch.Tensor) -> torch.Tensor:
+    return t.float().reshape(1, -1, 1, 1)
+
+
+def resnet_block_saved_reference(
+    x, w1, b1, g1, be1, scale, shift, w2, b2, g2, be2, wres=None, bres=None,
+    groups: int = 8, eps: float = 1e-5, pad_after_norm: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fp32 conv outputs (h1, h2) of ``resnet_block_reference``: what
+    the kernel's forward keeps for the backward."""
     cdt = x.dtype
-
-    def rounded(t: torch.Tensor) -> torch.Tensor:  # an operand of a product in cdt
-        return t.to(cdt).float()
-
-    def col(t: torch.Tensor) -> torch.Tensor:
-        return t.float().reshape(1, -1, 1, 1)
-
-    h = F.conv2d(rounded(x), rounded(w1), padding=1) + col(b1)
+    h1 = F.conv2d(_rounded(x, cdt), _rounded(w1, cdt), padding=1) + _col(b1)
     if pad_after_norm:
-        h = group_norm_film_silu_reference(F.pad(h, (1, 1, 1, 1)), g1, be1, scale, shift, groups, eps,
-                                           stats=group_stats(h, groups, eps))
-        h = F.conv2d(rounded(h), rounded(w2)) + col(b2)
+        h = group_norm_film_silu_reference(F.pad(h1, (1, 1, 1, 1)), g1, be1, scale, shift, groups, eps,
+                                           stats=group_stats(h1, groups, eps))
+        h2 = F.conv2d(_rounded(h, cdt), _rounded(w2, cdt)) + _col(b2)
     else:
-        h = group_norm_film_silu_reference(h, g1, be1, scale, shift, groups, eps)
-        h = F.conv2d(rounded(h), rounded(w2), padding=1) + col(b2)
-    h = group_norm_film_silu_reference(h, g2, be2, None, None, groups, eps)
-    res = x.float() if wres is None else F.conv2d(rounded(x), rounded(wres)) + col(bres)
-    return (h + res).to(cdt)
+        h = group_norm_film_silu_reference(h1, g1, be1, scale, shift, groups, eps)
+        h2 = F.conv2d(_rounded(h, cdt), _rounded(w2, cdt), padding=1) + _col(b2)
+    return h1, h2
+
+
+def conv_grads(dy: torch.Tensor, inp: torch.Tensor, w: torch.Tensor, padding: int, cdt: torch.dtype,
+               mask: Tuple[bool, bool], plain: bool = True):
+    """(d inp, d w) of conv2d(inp, w, padding) for the output gradient dy,
+    with every operand in cdt and fp32 sums: the data gradient in cdt, the
+    weight gradient rounded to cdt and held in fp32 (the cast of the fp32
+    weight to cdt). ``plain``: fp32 convolutions of the rounded operands,
+    rounded after; else one convolution backward in cdt (cuDNN on the card;
+    fp32 with TF32 off). An entry of ``mask`` that is False gives None."""
+    ops = [t.to(cdt) for t in (dy, inp, w)]
+    if plain:
+        ops = [t.float() for t in ops]
+    with _no_tf32():
+        gi, gw, _ = torch.ops.aten.convolution_backward(
+            ops[0], ops[1], ops[2], None, [1, 1], [padding, padding], [1, 1], False, [0, 0], 1,
+            [mask[0], mask[1], False])
+    return (None if gi is None else gi.to(cdt)), (None if gw is None else gw.to(cdt).float())
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """fp32 convolutions in full fp32, as the JAX block's Precision.HIGHEST."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+Grads = Tuple[Optional[torch.Tensor], ...]
+
+
+def resnet_block_backward_reference(
+    x, w1, b1, g1, be1, scale, shift, w2, b2, g2, be2, wres, bres,
+    h1: torch.Tensor, h2: torch.Tensor, dout: torch.Tensor,
+    groups: int = 8, eps: float = 1e-5, pad_after_norm: bool = False, film_dropped: bool = False,
+) -> Grads:
+    """Plain PyTorch version of the block's backward from what the forward
+    keeps (x, the weights, the fp32 conv outputs h1 and h2; the GroupNorm
+    statistics are taken again from them) and the output gradient dout:
+    the gradients of the 13 inputs of ``resnet_block_reference``, None for
+    an input that is None, by the formulas and rounding points of the
+    kernel's backward (csrc/resblock_backward.cu):
+    - the GroupNorms' gradients in fp32 (``group_norm_film_silu_backward_reference``);
+      the conv biases' gradients fp32 sums of the fp32 dh;
+    - each convolution's gradients with every operand in x's dtype (dh2,
+      dh1 and dout rounded to it) and fp32 sums, the data gradient in x's
+      dtype, the weight gradient rounded to it (``conv_grads``);
+    - dx the sum, in x's dtype, of conv1's and the residual's data
+      gradients, or of conv1's and dout on the identity.
+    ``pad_after_norm`` and ``film_dropped`` are controls for checks: conv2's
+    weight gradient taken over h1n padded after GN1+SiLU, or GN1's
+    backward without FiLM (no dscale or dshift then)."""
+    cdt = x.dtype
+    d = dout.float()
+    dh2, dg2, dbe2, _, _ = group_norm_film_silu_backward_reference(h2, g2, be2, None, None, d, groups, eps)
+    fs, fh = (None, None) if film_dropped else (scale, shift)
+    if pad_after_norm:
+        h1n = group_norm_film_silu_reference(F.pad(h1, (1, 1, 1, 1)), g1, be1, fs, fh, groups, eps,
+                                             stats=group_stats(h1, groups, eps))
+        dh1n, dw2 = conv_grads(dh2, h1n, w2, 0, cdt, (True, True))
+        dh1n = dh1n[:, :, 1:-1, 1:-1]
+    else:
+        h1n = group_norm_film_silu_reference(h1, g1, be1, fs, fh, groups, eps)
+        dh1n, dw2 = conv_grads(dh2, h1n, w2, 1, cdt, (True, True))
+    dh1, dg1, dbe1, dscale, dshift = group_norm_film_silu_backward_reference(
+        h1, g1, be1, fs, fh, dh1n.float(), groups, eps)
+    dx, dw1 = conv_grads(dh1, x, w1, 1, cdt, (True, True))
+    dwres = dbres = None
+    if wres is None:
+        dx = dx + dout.to(cdt)
+    else:
+        dxr, dwres = conv_grads(d, x, wres, 0, cdt, (True, True))
+        dx, dbres = dx + dxr, d.sum(dim=(0, 2, 3))
+    return (dx, dw1, dh1.sum(dim=(0, 2, 3)), dg1, dbe1, dscale, dshift,
+            dw2, dh2.sum(dim=(0, 2, 3)), dg2, dbe2, dwres, dbres)
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load("resblock")
-    lib.rb_workspace_floats.argtypes = [ctypes.c_int] * 4
-    lib.rb_workspace_floats.restype = ctypes.c_longlong
+    lib.rb_saved_floats.argtypes = [ctypes.c_int] * 5
+    lib.rb_saved_floats.restype = ctypes.c_longlong
+    lib.rb_scratch_floats.argtypes = [ctypes.c_int] * 4
+    lib.rb_scratch_floats.restype = ctypes.c_longlong
     lib.rb_forward.argtypes = (
         [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 5
         + [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_void_p] * 6
-        + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 3
+        + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 4
     )
     lib.rb_forward.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _backward_library() -> ctypes.CDLL:
+    lib = _build.load("resblock_backward")
+    lib.rb_gn_backward_floats.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
+    lib.rb_gn_backward_floats.restype = ctypes.c_longlong
+    lib.rb_gn_backward.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+        + [ctypes.c_longlong] + [ctypes.c_void_p] * 12
+    )
+    lib.rb_gn_backward.restype = ctypes.c_int
     return lib
 
 
@@ -134,24 +250,15 @@ def tc_weight_layout(w: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
     return t.permute(1, 4, 0, 8, 5, 2, 6, 3, 7).contiguous()
 
 
-# (id(w), cdt) -> (weakref to w, (w._version, w.data_ptr(), w.device), layout)
-_layouts: Dict[tuple, tuple] = {}
+_layouts = layouts._cache  # shared with the other kernels' layouts, keyed (id(w), layout key)
 
 
 def cached_weight_layout(w: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
     """``tc_weight_layout(w, cdt)``, rebuilt when w's version moves (an
     in-place update) or its storage does (``w.data = t``, ``Module.to``),
-    and dropped when w is freed. An inference tensor has no version counter
-    and is laid out on every call."""
-    if w.is_inference():
-        return _build_layout(w, cdt)
-    key, state = (id(w), cdt), (w._version, w.data_ptr(), w.device)
-    hit = _layouts.get(key)
-    if hit is not None and hit[0]() is w and hit[1] == state:
-        return hit[2]
-    layout = _build_layout(w, cdt)
-    _layouts[key] = (weakref.ref(w, lambda _, key=key: _layouts.pop(key, None)), state, layout)
-    return layout
+    and dropped when w is freed (``layouts.cached_layout``). An inference
+    tensor has no version counter and is laid out on every call."""
+    return layouts.cached_layout(w, cdt, lambda t: _build_layout(t, cdt))
 
 
 def _build_layout(w: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
@@ -167,13 +274,26 @@ def _weight(w: torch.Tensor, cout: int, cin: int, k: int, x: torch.Tensor) -> to
     return cached_weight_layout(w, x.dtype)
 
 
-def _forward(x, w1, b1, g1, be1, scale, shift, w2, b2, g2, be2, wres, bres, groups, eps) -> torch.Tensor:
-    """Launch the kernels: out (B, Cout, H, W) in x's dtype, contiguous."""
+def saved_views(saved: torch.Tensor, b: int, c: int, h: int, w: int, groups: int) -> Dict[str, torch.Tensor]:
+    """What the kernel's forward keeps (csrc/resblock.cu, rb_saved_floats),
+    as views: GN1's and GN2's affines ``coef1``, ``coef2`` (B, C, 2), group
+    statistics ``stats1``, ``stats2`` (B, groups, 2) as (mean, rstd), and
+    the fp32 conv outputs ``h1``, ``h2`` (B, C, H, W)."""
+    bc, bg, act = b * c, b * groups, b * c * h * w
+    at = [0, 2 * bc, 4 * bc, 4 * bc + 2 * bg, 4 * bc + 4 * bg, 4 * bc + 4 * bg + act]
+    return {"coef1": saved[at[0]:at[1]].view(b, c, 2), "coef2": saved[at[1]:at[2]].view(b, c, 2),
+            "stats1": saved[at[2]:at[3]].view(b, groups, 2), "stats2": saved[at[3]:at[4]].view(b, groups, 2),
+            "h1": saved[at[4]:at[5]].view(b, c, h, w), "h2": saved[at[5]:at[5] + act].view(b, c, h, w)}
+
+
+def _forward(x, w1, b1, g1, be1, scale, shift, w2, b2, g2, be2, wres, bres, groups, eps):
+    """Launch the kernels: out (B, Cout, H, W) in x's dtype, contiguous, and
+    what they keep for the backward (``saved_views``)."""
     check_activation(x, "fused_resnet_block")
     b, cin, h, w = x.shape
     cout = w1.shape[0]
-    if cout % groups or cout % 4:
-        raise ValueError(f"Cout={cout} must be a multiple of groups={groups} and of 4")
+    if cout % groups or cout % 4 or cout // groups > 1024:
+        raise ValueError(f"Cout={cout} must be a multiple of groups={groups} (at most 1024 channels a group) and of 4")
     if wres is None and cin != cout:
         raise ValueError(f"the identity residual needs Cin == Cout, got {cin} and {cout}")
     cdt = x.dtype
@@ -189,40 +309,102 @@ def _forward(x, w1, b1, g1, be1, scale, shift, w2, b2, g2, be2, wres, bres, grou
     lib = _library()
     with torch.cuda.device(x.device):
         out = torch.empty((b, cout, h, w), device=x.device, dtype=cdt)
-        ws = torch.empty(lib.rb_workspace_floats(b, cout, h, w), device=x.device, dtype=torch.float32)
+        saved = torch.empty(lib.rb_saved_floats(b, cout, h, w, groups), device=x.device, dtype=torch.float32)
+        scratch = torch.empty(lib.rb_scratch_floats(b, cout, h, w), device=x.device, dtype=torch.float32)
         err = lib.rb_forward(
             int(cdt == torch.bfloat16), int(film_bf16), x.data_ptr(), x.stride(0), b, cin, cout, h, w,
             w1t.data_ptr(), vec[0].data_ptr(), vec[1].data_ptr(), vec[2].data_ptr(), ptr(scale), ptr(shift),
             film_stride, w2t.data_ptr(), vec[3].data_ptr(), vec[4].data_ptr(), vec[5].data_ptr(),
-            ptr(wrest), ptr(brest), groups, float(eps), ws.data_ptr(), out.data_ptr(),
+            ptr(wrest), ptr(brest), groups, float(eps), saved.data_ptr(), scratch.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_resnet_block kernel launch failed with CUDA error {err}")
     fused_resnet_block.launches += 1
-    return out
+    return out, saved
+
+
+def _gn_backward(h, da, coef, stats, gamma, beta, scale, shift, x, groups, h1n_from=None):
+    """One GroupNorm's backward kernels (csrc/resblock_backward.cu) over the
+    fp32 h with the forward's affine and statistics, for da, the gradient of
+    its output in x's dtype: dh in x's dtype and the fp32 sums (dgamma,
+    dbeta, dbias, dscale, dshift, dsum of da); with ``h1n_from`` = (h1,
+    coef1) also conv2's input h1n rebuilt. dscale and dshift None where
+    scale and shift are, dsum only with ``h1n_from``."""
+    b, c, hh, ww = h.shape
+    cdt, dev = x.dtype, x.device
+    gamma, beta = (t.detach().float().reshape(c).contiguous() for t in (gamma, beta))
+    scale_rows, shift_rows, film_stride, film_bf16 = film_rows(scale, shift, x, c)
+    da = da.to(cdt).contiguous()
+    lib = _backward_library()
+    f32 = dict(device=dev, dtype=torch.float32)
+    dh = torch.empty_like(da)
+    dgamma, dbeta, dbias = (torch.empty(c, **f32) for _ in range(3))
+    dscale = None if scale is None else torch.empty(b, c, **f32)
+    dshift = None if shift is None else torch.empty(b, c, **f32)
+    dsum = h1n = None
+    if h1n_from is not None:
+        dsum, h1n = torch.empty(c, **f32), torch.empty_like(da)
+    ws = torch.empty(lib.rb_gn_backward_floats(b, c, hh * ww), **f32)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = lib.rb_gn_backward(
+        int(cdt == torch.bfloat16), int(film_bf16), h.data_ptr(), da.data_ptr(), coef.data_ptr(), stats.data_ptr(),
+        gamma.data_ptr(), beta.data_ptr(), ptr(scale_rows), ptr(shift_rows), film_stride, b, c, groups, hh * ww,
+        ws.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), dbias.data_ptr(), ptr(dscale), ptr(dshift), ptr(dsum),
+        dh.data_ptr(), None if h1n_from is None else h1n_from[0].data_ptr(),
+        None if h1n_from is None else h1n_from[1].data_ptr(), ptr(h1n), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_resnet_block backward kernel launch failed with CUDA error {err}")
+    as_film = lambda g, t: None if g is None else g.to(t.dtype)
+    return dh, dgamma, dbeta, dbias, as_film(dscale, scale), as_film(dshift, shift), dsum, h1n
+
+
+def _backward(x, w1, b1, g1, be1, scale, shift, w2, b2, g2, be2, wres, bres, saved, dout, groups,
+              needs: Tuple[bool, ...]) -> Grads:
+    """The block's backward on the card from what ``_forward`` kept: the
+    GroupNorm passes by the kernels, the convolutions' gradients by
+    ``conv_grads`` in x's dtype; the function of
+    ``resnet_block_backward_reference``. Gradients that ``needs`` does not
+    ask for come back None, or are not computed where that saves a
+    convolution."""
+    b, cin, hh, ww = x.shape
+    cout, cdt = w1.shape[0], x.dtype
+    v = saved_views(saved, b, cout, hh, ww, groups)
+    with torch.cuda.device(x.device):
+        dh2, dg2, dbe2, db2, _, _, dbres, h1n = _gn_backward(
+            v["h2"], dout, v["coef2"], v["stats2"], g2, be2, None, None, x, groups, h1n_from=(v["h1"], v["coef1"]))
+        dh1n, dw2 = conv_grads(dh2, h1n, w2, 1, cdt, (True, needs[7]), plain=False)
+        del dh2, h1n
+        dh1, dg1, dbe1, db1, dscale, dshift, _, _ = _gn_backward(
+            v["h1"], dh1n, v["coef1"], v["stats1"], g1, be1, scale, shift, x, groups)
+        del dh1n
+        dx, dw1 = conv_grads(dh1, x, w1, 1, cdt, (needs[0], needs[1]), plain=False)
+        dwres = None
+        if wres is None:
+            dx, dbres = None if dx is None else dx + dout.to(cdt), None
+        else:
+            dxr, dwres = conv_grads(dout, x, wres, 0, cdt, (needs[0], needs[11]), plain=False)
+            dx = None if dx is None else dx + dxr
+    fused_resnet_block.backward_launches += 1
+    grads = (dx, dw1, db1, dg1, dbe1, dscale, dshift, dw2, db2, dg2, dbe2, dwres, dbres)
+    return tuple(g if need else None for g, need in zip(grads, needs))
 
 
 class _ResnetBlockCUDA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1, b1, g1, be1, scale, shift, w2, b2, g2, be2, wres, bres, groups, eps):
-        # x and the weights only, as the JAX _block_fwd keeps them
-        ctx.save_for_backward(x, w1, b1, g1, be1, scale, shift, w2, b2, g2, be2, wres, bres)
-        ctx.groups, ctx.eps = groups, eps
-        return _forward(x, w1, b1, g1, be1, scale, shift, w2, b2, g2, be2, wres, bres, groups, eps)
+        out, saved = _forward(x, w1, b1, g1, be1, scale, shift, w2, b2, g2, be2, wres, bres, groups, eps)
+        if any(ctx.needs_input_grad):  # training: keep h1, h2 and the GroupNorms' statistics
+            ctx.save_for_backward(x, w1, b1, g1, be1, scale, shift, w2, b2, g2, be2, wres, bres, saved)
+            ctx.groups = groups
+        return out
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, grad_out):
-        saved = ctx.saved_tensors
-        wanted = [i for i, need in enumerate(ctx.needs_input_grad[:13]) if need]
-        with torch.enable_grad():
-            leaves = [None if t is None else t.detach().requires_grad_(i in wanted) for i, t in enumerate(saved)]
-            out = resnet_block_reference(*leaves, groups=ctx.groups, eps=ctx.eps)
-            grads = torch.autograd.grad(out, [leaves[i] for i in wanted], grad_out)
-        result = [None] * 15
-        for i, g in zip(wanted, grads):
-            result[i] = g
-        return tuple(result)
+        *args, saved = ctx.saved_tensors
+        return (*_backward(*args, saved, grad_out, ctx.groups, ctx.needs_input_grad[:13]), None, None)
 
 
 def fused_resnet_block(
@@ -237,9 +419,10 @@ def fused_resnet_block(
 
     CUDA tensors (fp32 or bf16, contiguous within each batch element, Cout
     a multiple of ``groups`` and of 4) go through the kernels, counted in
-    ``fused_resnet_block.launches``; the backward recomputes the plain
-    version and launches nothing. CPU tensors go through
-    ``resnet_block_reference``.
+    ``fused_resnet_block.launches``; their backward, from the fp32 h1 and
+    h2 the forward keeps, through the backward kernels, counted in
+    ``fused_resnet_block.backward_launches``. CPU tensors go through
+    ``resnet_block_reference``, differentiated by autograd.
     """
     args = (x, w1, b1, g1, be1, scale, shift, w2, b2, g2, be2, wres, bres)
     if x.device.type == "cpu":
@@ -250,4 +433,5 @@ def fused_resnet_block(
 
 
 fused_resnet_block.launches = 0
+fused_resnet_block.backward_launches = 0
 fused_resnet_block.layouts_built = 0  # tensor-core weight layouts built (cached_weight_layout)
