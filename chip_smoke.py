@@ -13,7 +13,9 @@ Phases, each of which exits non-zero on failure:
      source, all started together;
   3. linear attention forward vs plain at the serving shapes, and the
      forward and backward vs plain at the training shapes and at edge
-     shapes; the fused PreNorm linear-attention block (bf16) vs plain at
+     shapes, with the forward's saved context and statistics vs plain and
+     the backward's two launches a call timed apart at (16, 4, 32, 16384)
+     and (16, 4, 32, 256); the fused PreNorm linear-attention block (bf16) vs plain at
      the serving and training shapes and at edges, on inputs where every
      stage of the attention moves the output, with controls (the plain
      version with a stage altered) that must read above the tolerance, and
@@ -21,7 +23,9 @@ Phases, each of which exits non-zero on failure:
      torch.profiler);
      the GroupNorm+FiLM+SiLU, ResnetBlock and flash cosine-attention
      kernels vs plain at every call shape of the default UNet at batch 8
-     and 16, in fp32 and bf16, and at edges, each with its controls;
+     and 16, in fp32 and bf16, and at edges, each with its controls (the
+     GroupNorm's edges on both of its routes, its cluster route one launch
+     a call, each launch timed apart at (8, 64, 128^2) and (8, 512, 16^2));
      device times (CUDA events) beside each kernel's bound; each launch of
      one ResnetBlock call at (8, 64->64, 128^2) and (16, 768->512, 16^2) and
      of one flash call at (8, 4, 32, 256) timed apart under torch.profiler;
@@ -172,9 +176,9 @@ class Phase:
 # substrings of device kernel names -> the kind of work, for the profiles
 KERNEL_KINDS = (
     ("linear_attention forward kernel", ("context_partials", "combine_context", "apply_context")),
-    ("linear_attention backward kernel", ("grad_partials", "combine_grad", "apply_grad")),
+    ("linear_attention backward kernel", ("grad_q", "grad_kv")),
     ("prenorm_linear_attention kernel", ("kv_context", "apply_block")),
-    ("fused_group_norm_film_silu kernel", ("gn_partials", "gn_apply")),
+    ("fused_group_norm_film_silu kernel", ("gn_cluster", "gn_partials", "gn_apply")),
     ("fused_resnet_block kernel", ("conv_tc", "res_tc", "gn_coefs", "finish_identity")),
     ("fused_resnet_block backward kernel", ("gn_bwd_reduce", "gn_bwd_coefs", "gn_bwd_apply")),
     ("flash_cosine_attention kernel", ("row_norms", "flash_fwd", "flash_row")),
@@ -344,8 +348,10 @@ def edge_inputs(gen):
 
 def check_backward(la, gen, scale):
     """Backward kernel vs its plain version at the training shapes and at
-    the edges; per-shape rows with times."""
-    from tedm_tpu_torch.kernels.bounds import bound
+    the edges, on the forward kernel's saved scale*C and statistics, which
+    are held against their plain version first; per-shape rows with times,
+    and the two launches of a call timed apart at N = 16384 and 256."""
+    from tedm_tpu_torch.kernels.bounds import bound, linear_attention_backward_call
 
     rows = {}
     cases = [(s, *(torch.randn(s, generator=gen, device="cuda") * 2 for _ in range(2)),
@@ -355,9 +361,14 @@ def check_backward(la, gen, scale):
         if what == "qkv views":  # a gradient with a batch stride of its own
             g = torch.randn(2, 3 * 128, 400, generator=gen, device="cuda")[:, 128:256].reshape(2, 4, 32, 400)
         _, ctx, stats = la._forward(q, k, v, scale)
+        saved = la.linear_attention_saved_reference(q, k, v, scale)
         got = la._backward(q, k, v, g, ctx, stats, scale)
         ref = la.linear_attention_backward_reference(q, k, v, g, scale)
         torch.cuda.synchronize()
+        saved_errs = [rel_err(ctx, saved[0]), rel_err(stats[:, 0], saved[1][:, 0]), rel_err(stats[:, 1], saved[1][:, 1])]
+        if not max(saved_errs) <= LA_TOL:
+            fail(f"linear_attention forward's saved scale*C, m, l disagree with their plain version at {what}: "
+                 f"{saved_errs}")
         errs = [rel_err(a, b) for a, b in zip(got, ref)]
         if not max(errs) <= LA_BWD_TOL:
             fail(f"linear_attention backward disagrees with its plain version at {what}: "
@@ -366,20 +377,27 @@ def check_backward(la, gen, scale):
             continue
         shape = tuple(q.shape)
         b, h, d, n = shape
-        # q, k, v and g read once, dq, dk and dv written once (fp32); the
-        # JAX cost estimate's 10 * B*h*d*d*N operations (linear_attention.py:152)
         row = {
             "shape": list(shape),
             "max_abs_err": max((a - r).abs().max().item() for a, r in zip(got, ref)),
             "max_rel_err": max(errs),
+            "saved_rel_err": max(saved_errs),
             "ms": device_ms(lambda: la._backward(q, k, v, g, ctx, stats, scale)),
             "plain_ms": device_ms(lambda: la.linear_attention_backward_reference(q, k, v, g, scale)),
-            **bound(7 * q.numel() * 4, 10 * b * h * d * d * n),
+            **bound(*linear_attention_backward_call(b, n)),
         }
+        if n in (256, 16384):  # each launch of a call, median over calls; two a call
+            row["per_launch"] = call_launches(f"linear_attention backward {shape}",
+                                              lambda: la._backward(q, k, v, g, ctx, stats, scale), REPS)
+            if [short_name(name) for name, _ in row["per_launch"]] != ["grad_q", "grad_kv"]:
+                fail(f"linear_attention backward {shape} launched {[name for name, _ in row['per_launch']]}, "
+                     "not grad_q and grad_kv")
         rows[shape] = row
+        split = "".join(f", {short_name(name)} {ms:.4f}" for name, ms in row.get("per_launch", []))
         print(f"linear_attention backward {shape}: relative errors (dq, dk, dv) "
-              f"{', '.join(f'{e:.2e}' for e in errs)} (tol {LA_BWD_TOL}) kernel {row['ms']:.4f} ms "
-              f"plain {row['plain_ms']:.4f} ms bound {1e3 * row['bound_ms']:.2f} us", flush=True)
+              f"{', '.join(f'{e:.2e}' for e in errs)} (tol {LA_BWD_TOL}; saved {max(saved_errs):.2e}) kernel "
+              f"{row['ms']:.4f} ms{split} plain {row['plain_ms']:.4f} ms bound {1e3 * row['bound_ms']:.2f} us",
+              flush=True)
     print("linear_attention backward edge shapes and qkv views: within tolerance", flush=True)
     return rows
 
@@ -547,22 +565,35 @@ def gn_inputs(gen, shape, dtype, film, strided=False):
     return x, 0.35 * (1 + 0.1 * r(c)), 0.1 * r(c), scale, shift
 
 
-def gn_check(gn, args, what):
+def gn_check(gn, args, what, route=None):
     """The kernel against its plain version and the control: group 0's
-    statistics taken over the wrong span, one group on (group 1's)."""
+    statistics taken over the wrong span, one group on (group 1's). The
+    kernel on ``route`` where one is given, else on its own."""
     x = args[0]
     mean, rstd = gn.group_stats(x)
     mean, rstd = mean.clone(), rstd.clone()
     mean[:, 0], rstd[:, 0] = mean[:, 1], rstd[:, 1]
     controls = {"group 0 over a wrong span": gn.group_norm_film_silu_reference(*args, stats=(mean, rstd))}
-    return held("fused_group_norm_film_silu", gn.fused_group_norm_film_silu(*args),
-                gn.group_norm_film_silu_reference(*args), controls, what, x.dtype)
+    out = gn.fused_group_norm_film_silu(*args) if route is None else gn._forward(*args, 8, 1e-5, route=route)
+    return held("fused_group_norm_film_silu", out, gn.group_norm_film_silu_reference(*args), controls, what, x.dtype)
+
+
+def gn_routes(gn, args) -> list:
+    """Both routes for the call: the cluster route (the path's size, else 8
+    CTAs where they fit) and the two passes."""
+    x = args[0]
+    b, c, h, w = x.shape
+    path = gn.device_route(x, x.dtype == torch.bfloat16 and args[3] is not None)
+    cluster = path if path.cluster else gn.Route(8, gn.cluster_smem(c, h * w, x.element_size(), 8))
+    return [r for r in (cluster, gn.TWO_PASS) if r.smem <= gn.SMEM_PER_CTA]
 
 
 def check_groupnorm(gn, gen):
     """B.3 against its plain version at every call shape of the default UNet
     at batch 8 and 16, in fp32 and bf16, with and without FiLM, and at
-    edges; per-call rows with times."""
+    edges on both routes; per-call rows with times and the route taken; one
+    launch a call on the cluster route, and each launch of a call timed
+    apart on both routes at (8, 64, 128^2) and (8, 512, 16^2)."""
     from tedm_tpu_torch.kernels.bounds import bound, groupnorm_call
 
     rows = {}
@@ -573,25 +604,35 @@ def check_groupnorm(gn, gen):
                 err, control = gn_check(gn, args, (shape, dtype, film))
                 b, c, h, w = shape
                 row = {"shape": list(shape), "dtype": dtype_name(dtype), "film": film, "max_abs_err": err,
-                       "min_control_err": control,
+                       "min_control_err": control, "cluster": gn_routes(gn, args)[0].cluster,
                        "ms": device_ms(lambda: gn.fused_group_norm_film_silu(*args)),
                        "plain_ms": device_ms(lambda: gn.group_norm_film_silu_reference(*args)),
                        **bound(*groupnorm_call(b, c, h * w, args[0].element_size()))}
+                if film and shape in [(8, 64, 128, 128), (8, 512, 16, 16)]:
+                    label = f"fused_group_norm_film_silu {shape} {dtype_name(dtype)}"
+                    row["per_launch"] = launch_profile(label, lambda: gn.fused_group_norm_film_silu(*args))
+                    if [short_name(name) for name, _ in row["per_launch"]] != ["gn_cluster"]:
+                        fail(f"{label} launched {[name for name, _ in row['per_launch']]}, not one gn_cluster")
+                    row["two_pass_per_launch"] = launch_profile(
+                        f"{label} on the two-pass route", lambda: gn._forward(*args, 8, 1e-5, route=gn.TWO_PASS))
                 rows[(shape, dtype, film)] = row
                 print(f"fused_group_norm_film_silu {shape} {row['dtype']} film={film}: max_abs_err {err:.3e} "
-                      f"(controls >= {control:.3f}) kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
-                      f"bound {1e3 * row['bound_ms']:.2f} us", flush=True)
+                      f"(controls >= {control:.3f}) cluster {row['cluster']} kernel {row['ms']:.4f} ms plain "
+                      f"{row['plain_ms']:.4f} ms bound {1e3 * row['bound_ms']:.2f} us", flush=True)
                 del args
-            edges = [(s, f) for s in [(1, 64, 1, 1), (3, 16, 1, 17), (1, 64, 15, 17), (3, 32, 8, 12), (1, 16, 8, 12)]
-                     for f in (True, False)]
-            for shape, film in edges:
-                gn_check(gn, gn_inputs(gen, shape, dtype, film), (shape, dtype))
-            args = gn_inputs(gen, (2, 64, 12, 8), dtype, True, strided=True)
-            if args[0].is_contiguous():
+            edges = [(s, f) for s in [(1, 64, 1, 1), (3, 16, 1, 17), (1, 64, 15, 17), (3, 32, 8, 12), (1, 16, 8, 12),
+                                      (1, 64, 256, 256)] for f in (True, False)]
+            cases = [(gn_inputs(gen, shape, dtype, film), (shape, dtype, film)) for shape, film in edges]
+            cases.append((gn_inputs(gen, (2, 64, 12, 8), dtype, True, strided=True), "x with a batch stride"))
+            if cases[-1][0][0].is_contiguous():
                 fail("the strided-x check got a contiguous x")
-            gn_check(gn, args, "x with a batch stride")
-    print("fused_group_norm_film_silu edges (N = 1, 17, 255; 8x12; C = 16; B = 1, 3; a strided x) and "
-          "strided FiLM rows: within tolerance", flush=True)
+            for args, what in cases:
+                for route in gn_routes(gn, args):
+                    gn_check(gn, args, (what, route.cluster), route)
+                gn_check(gn, args, (what, "path"))
+            del cases
+    print("fused_group_norm_film_silu edges (N = 1, 17, 255; 8x12; C = 16; B = 1, 3; a 256^2 slab; a strided x) "
+          "on both routes, and strided FiLM rows: within tolerance", flush=True)
     return rows
 
 
@@ -1383,6 +1424,7 @@ def main() -> None:
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in bwd_rows.values()) else "operations",
         "library_ms": None,  # no single PyTorch call computes this function
         "per_shape": list(bwd_rows.values()),
+        "per_launch": {str(k): r["per_launch"] for k, r in bwd_rows.items() if "per_launch" in r},
     }, {
         "name": "prenorm_linear_attention",
         "route": "cuda",
@@ -1403,7 +1445,9 @@ def main() -> None:
     },
         # no single PyTorch call computes GroupNorm with FiLM, or the block
         entry(GN, "tedm_tpu_torch/kernels/csrc/groupnorm.cu", "tedm_tpu/ops/pallas/groupnorm.py:133", gn_rows,
-              gn_req, [(s, torch.float32, f) for s, f in gn_calls(16)]),
+              gn_req, [(s, torch.float32, f) for s, f in gn_calls(16)],
+              per_launch={f"{k[0]} {dtype_name(k[1])}": {"cluster": r["per_launch"], "two_pass": r["two_pass_per_launch"]}
+                          for k, r in gn_rows.items() if "per_launch" in r}),
         entry(RB, "tedm_tpu_torch/kernels/csrc/resblock.cu", "tedm_tpu/ops/pallas/resblock.py:199", rb_rows,
               rb_req, [(s, torch.float32) for s in rb_shapes(16)], per_launch=rb_launches,
               residual_routes=rb_residual),

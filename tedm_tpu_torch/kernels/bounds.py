@@ -73,10 +73,24 @@ def prenorm_attention_call(batch: int, c: int, n: int) -> Tuple[float, float, fl
             2 * batch * n * (3 * hidden * c + hidden * c) + 4 * batch * hidden * DIM_HEAD * n, BF16_FLOPS_PER_S)
 
 
+def linear_attention_backward_call(batch: int, n: int) -> Tuple[float, float, float]:
+    """(bytes, operations, rate) of one linear-attention backward over
+    (batch, 4, 32, n), fp32: q, k, v and g read once, dq, dk and dv written
+    once; the JAX cost estimate's 10 * B*h*d*d*N operations
+    (ops/pallas/linear_attention.py:152), at the rates of the kernel's two
+    passes: 6 of the 10 (the ds, dC' and dv products) on the tensor cores in
+    split TF32, 4 (dp, an fmaf chain, and the softmaxes) at fp32's. The rate
+    returned is the one at which all 10 take that time."""
+    per = batch * HEADS * DIM_HEAD * DIM_HEAD * n
+    seconds = 6 * per / SPLIT_TF32_FLOPS_PER_S + 4 * per / FP32_FLOPS_PER_S
+    return 7 * 4 * batch * HEADS * DIM_HEAD * n, 10 * per, 10 * per / seconds
+
+
 def groupnorm_call(batch: int, c: int, hw: int, itemsize: int = 4) -> Tuple[float, float, float]:
     """(bytes, operations, rate) of one GroupNorm+FiLM+SiLU over (batch, c,
-    hw pixels): x read and out written in their dtype; about 10 operations
-    an element on the CUDA cores."""
+    hw pixels): x read and out written in their dtype (the cluster route
+    reads x once; the two-pass route, for a slab no cluster holds, twice);
+    about 10 operations an element on the CUDA cores."""
     return 2 * itemsize * batch * c * hw, 10 * batch * c * hw, FP32_FLOPS_PER_S
 
 
@@ -129,10 +143,8 @@ def kernel_bounds(batch: int) -> Dict[str, Dict]:
     # 1: q, k, v read and out written, fp32; two d x d x N contractions per (b, h)
     add("linear_attention", [(4 * 4 * batch * hidden * s * s, 4 * batch * hidden * DIM_HEAD * s * s)
                              for _, s in attn])
-    # 1b: q, k, v, g read and dq, dk, dv written, fp32; the JAX cost estimate's
-    # 10 * B*h*d*d*N (ops/pallas/linear_attention.py:152)
-    add("linear_attention backward", [(7 * 4 * batch * hidden * s * s, 10 * batch * hidden * DIM_HEAD * s * s)
-                                      for _, s in attn])
+    # 1b: q, k, v, g read and dq, dk, dv written, fp32
+    add("linear_attention backward", [linear_attention_backward_call(batch, s * s) for _, s in attn])
     # 2: the bf16 path's whole Residual(PreNorm(LinearAttention))
     add("prenorm_linear_attention (bf16)", [prenorm_attention_call(batch, c, s * s) for c, s in attn])
     mid = SIZE >> (len(MULTS) - 1)

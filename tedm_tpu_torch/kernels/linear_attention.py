@@ -14,19 +14,23 @@ models/unet_model.py:178-210. On a CUDA tensor ``linear_attention``
 launches the hand-written Hopper kernels in ``csrc/linear_attention.cu``
 (design and bound in that file's header) through an ``autograd.Function``
 whose backward is a kernel too, or raises; on a CPU tensor it runs
-``linear_attention_reference``, differentiated by autograd.
+``linear_attention_reference``, differentiated by autograd. The backward
+kernel runs as two passes, one over q and g and one over k and v;
+``linear_attention_backward_passes`` is their plain version, pass by pass,
+for the tests.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from tedm_tpu_torch.kernels import _build
+from tedm_tpu_torch.kernels.tf32 import split_matmul, tf32_split
 
 D_HEAD = 32  # the kernel's compiled head width
 
@@ -65,6 +69,94 @@ def linear_attention_backward_reference(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def linear_attention_saved_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the forward kernel saves for the backward, in plain PyTorch:
+    scale*C (B*h, d, d), C = softmax_N(k) (v / N)^T, and the statistics
+    (B*h, 2, d) of softmax_N(k), its row max m and the sum l of exp(k - m).
+    Takes ``_forward``'s arguments; q is not read."""
+    b, h, d, n = k.shape
+    kf = k.float()
+    m = kf.amax(dim=3)
+    e = torch.exp(kf - m[..., None])
+    l = e.sum(dim=3)
+    ctx = torch.einsum("bhdn,bhen->bhde", e / l[..., None], v.float() / n) * scale
+    return ctx.reshape(b * h, d, d), torch.stack([m, l], dim=2).reshape(b * h, 2, d)
+
+
+def _chain(a: torch.Tensor, b: torch.Tensor, tf32: bool = False) -> torch.Tensor:
+    """a @ b over the last two dims, summed one k at a time in ascending
+    order: every output row is computed alike from its row of a, as the
+    kernel's tensor-core products and fmaf chains compute it. ``tf32``: each
+    term as the split-TF32 route's three products."""
+    if tf32:
+        (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+        term = lambda k: (al[..., k:k + 1] * bh[..., k:k + 1, :] + ah[..., k:k + 1] * bl[..., k:k + 1, :]
+                          + ah[..., k:k + 1] * bh[..., k:k + 1, :])
+    else:
+        term = lambda k: a[..., k:k + 1] * b[..., k:k + 1, :]
+    out = term(0)
+    for k in range(1, a.shape[-1]):
+        out = out + term(k)
+    return out
+
+
+def linear_attention_backward_pass_q(
+    q: torch.Tensor, g: torch.Tensor, ctx: torch.Tensor, tf32: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel's first pass in plain PyTorch, from what it reads:
+    q and g (B, h, d, N) and the forward's scale*C (B*h, d, d). Returns dq
+    = s * (ds - sum_d s*ds) with s = softmax_d(q) and ds = (scale C) g, dC'
+    = s g^T (B*h, d, d) and r[d] = sum_e dC'[d, e] (scale C)[d, e] (B*h,
+    d), fp32; r summed over e in order, as pass 2 sums dp. ``tf32``: ds and
+    dC' in split TF32, as the kernel's tensor cores compute them."""
+    b, h, d, n = q.shape
+    s = torch.softmax(q.float(), dim=2)
+    gf = g.float()
+    c = ctx.float().reshape(b, h, d, d)
+    ds = _chain(c, gf, tf32)
+    dq = s * (ds - (s * ds).sum(dim=2, keepdim=True))
+    gt = gf.transpose(2, 3)
+    dctx = split_matmul(s, gt) if tf32 else s @ gt
+    r = _chain(dctx.unsqueeze(3), c.unsqueeze(4)).reshape(b, h, d)  # row d: sum_e dC'[d, e] c[d, e]
+    return dq.to(q.dtype), dctx.reshape(b * h, d, d), r.reshape(b * h, d)
+
+
+def linear_attention_backward_pass_kv(
+    k: torch.Tensor, v: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+    dctx: torch.Tensor, r: torch.Tensor, scale: float, tf32: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel's second pass in plain PyTorch, from what it
+    reads: k and v (B, h, d, N), the forward's softmax_N statistics m and l
+    (B*h, d) and the first pass's dC' and r. Returns dk = p * (dp - r) and
+    dv = (scale / N) dC'^T p, with p = exp(k - m) / l and dp = dC' w, w =
+    (scale / N) v, summed over e in order as pass 1 sums r, fp32. Where dp =
+    r in exact arithmetic (N = 1, where dk vanishes) the two are equal here
+    too. ``tf32``: dv in split TF32, as the kernel's tensor cores compute
+    it; dp is an fp32 chain on the CUDA cores."""
+    b, h, d, n = k.shape
+    p = torch.exp(k.float() - m.reshape(b, h, d, 1)) * (1.0 / l.reshape(b, h, d, 1))
+    dc = dctx.float().reshape(b, h, d, d)
+    coef = scale / n
+    dv = _chain(dc.transpose(2, 3), p, tf32) * coef
+    dp = _chain(dc, v.float() * coef)
+    dk = p * (dp - r.reshape(b, h, d, 1))
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def linear_attention_backward_passes(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+    ctx: torch.Tensor, stats: torch.Tensor, scale: float, tf32: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) by the backward kernel's two passes in plain PyTorch,
+    from the forward's saved scale*C and statistics
+    (``linear_attention_saved_reference``)."""
+    dq, dctx, r = linear_attention_backward_pass_q(q, g, ctx, tf32)
+    dk, dv = linear_attention_backward_pass_kv(k, v, stats[:, 0], stats[:, 1], dctx, r, scale, tf32)
+    return dq, dk, dv
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load("linear_attention")
@@ -79,7 +171,7 @@ def _library() -> ctypes.CDLL:
     )
     lib.la_forward_f32.restype = ctypes.c_int
     lib.la_backward_f32.argtypes = (
-        [ctypes.c_void_p] * 10
+        [ctypes.c_void_p] * 11
         + [ctypes.c_longlong] * 4
         + [ctypes.c_int] * 3
         + [ctypes.c_float, ctypes.c_void_p]
@@ -135,6 +227,20 @@ def _forward(
     return out, ctx, stats
 
 
+_arrivals: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _arrival_counts(device: torch.device, stream: int, bh: int) -> torch.Tensor:
+    """The backward's per-(b, h) arrival counters for this device and
+    stream: zero before each backward, and left zero by it (its last block
+    of each (b, h) resets its counter), so no call clears them. Made (or
+    grown) once."""
+    counts = _arrivals.get((device.index, stream))
+    if counts is None or counts.numel() < bh:
+        counts = _arrivals[(device.index, stream)] = torch.zeros(bh, device=device, dtype=torch.int32)
+    return counts
+
+
 def _backward(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
     ctx: torch.Tensor, stats: torch.Tensor, scale: float,
@@ -154,11 +260,12 @@ def _backward(
         empty = functools.partial(torch.empty, device=q.device, dtype=torch.float32)
         dq, dk, dv = empty((b, h, d, n)), empty((b, h, d, n)), empty((b, h, d, n))
         ws = empty(lib.la_backward_workspace_floats(b * h, n))
+        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.la_backward_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), ctx.data_ptr(),
             stats.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ws.data_ptr(),
-            q.stride(0), k.stride(0), v.stride(0), g.stride(0), b, h, n, float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            _arrival_counts(q.device, stream, b * h).data_ptr(),
+            q.stride(0), k.stride(0), v.stride(0), g.stride(0), b, h, n, float(scale), stream,
         )
     _raise_on(err, "backward")
     linear_attention.backward_launches += 1

@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from tedm_tpu_torch.kernels import _build, layouts
+from tedm_tpu_torch.kernels.tf32 import tf32_round, tf32_split  # noqa: F401 (tf32_round: the tests read it here)
 from tedm_tpu_torch.kernels.groupnorm import (
     check_activation, film_rows, group_norm_film_silu_backward_reference, group_norm_film_silu_reference,
     group_stats,
@@ -213,21 +214,6 @@ BN = 64  # output channels of a kernel block, the wgmma's N
 # input channels of a chunk and values in 16 bytes, by compute dtype
 _CHUNK = {torch.bfloat16: (32, 8), torch.float32: (8, 4)}
 LAYOUT_RANGE = "fused_resnet_block weight layout"  # profiler range of a layout build
-
-
-def tf32_round(t: torch.Tensor) -> torch.Tensor:
-    """fp32 values rounded to TF32 (10 explicit mantissa bits, nearest,
-    ties away from zero), as the card's ``cvt.rna.tf32.f32`` rounds."""
-    bits = t.float().contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def tf32_split(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(hi, lo) with t = hi + lo to 2**-22 of |t|: hi its TF32 rounding, lo
-    the TF32 rounding of the rest. hi*hi + hi*lo + lo*hi is the product the
-    kernels' split-TF32 route computes."""
-    hi = tf32_round(t)
-    return hi, tf32_round(t.float() - hi)
 
 
 def tc_weight_layout(w: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
