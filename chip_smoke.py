@@ -13,9 +13,11 @@ Phases, each of which exits non-zero on failure:
      source, all started together;
   3. linear attention forward vs plain at the serving shapes, and the
      forward and backward vs plain at the training shapes and at edge
-     shapes, with the forward's saved context and statistics vs plain and
-     the backward's two launches a call timed apart at (16, 4, 32, 16384)
-     and (16, 4, 32, 256); the fused PreNorm linear-attention block (bf16) vs plain at
+     shapes, with the forward's saved context and statistics vs plain, the
+     forward's launches a call (one cluster launch or two, by its route)
+     named and timed apart at each of its 8 path shapes, and the backward's
+     two launches a call at (16, 4, 32, 16384) and (16, 4, 32, 256); the
+     fused PreNorm linear-attention block (bf16) vs plain at
      the serving and training shapes and at edges, on inputs where every
      stage of the attention moves the output, with controls (the plain
      version with a stage altered) that must read above the tolerance, and
@@ -175,7 +177,7 @@ class Phase:
 
 # substrings of device kernel names -> the kind of work, for the profiles
 KERNEL_KINDS = (
-    ("linear_attention forward kernel", ("context_partials", "combine_context", "apply_context")),
+    ("linear_attention forward kernel", ("la_cluster", "context_chunks", "apply_chunks")),
     ("linear_attention backward kernel", ("grad_q", "grad_kv")),
     ("prenorm_linear_attention kernel", ("kv_context", "apply_block")),
     ("fused_group_norm_film_silu kernel", ("gn_cluster", "gn_partials", "gn_apply")),
@@ -294,9 +296,18 @@ def read_metrics(run_dir: str) -> list:
         return [json.loads(line) for line in f]
 
 
+def forward_launches(la, shape) -> list:
+    """The CUDA kernels one forward call launches at ``shape`` by the
+    kernel's route: one cluster launch, or two launches."""
+    b, h, _, n = shape
+    return ["la_cluster"] if la.forward_route(b * h, n) else ["context_chunks", "apply_chunks"]
+
+
 def check_forward(la, gen, scale):
     """Forward kernel vs plain at the serving and training shapes and at
-    edges; per-shape rows with times."""
+    edges; per-shape rows with times, and each launch of a call at every
+    shape timed apart under torch.profiler, which must be the launches of
+    the kernel's route, by name; a row's ``cuda_launches`` is their count."""
     from tedm_tpu_torch.kernels.bounds import bound
 
     rows = {}
@@ -320,10 +331,18 @@ def check_forward(la, gen, scale):
             "ms": device_ms(lambda: la.linear_attention(q, k, v, scale)),
             "plain_ms": device_ms(lambda: la.linear_attention_reference(q, k, v, scale)),
             **bound(4 * q.numel() * 4, 2 * 2 * q.numel() * shape[2]),
+            # each launch of a call, median over calls
+            "per_launch": call_launches(f"linear_attention {shape}", lambda: la.linear_attention(q, k, v, scale),
+                                        REPS),
         }
+        if [short_name(name) for name, _ in row["per_launch"]] != forward_launches(la, shape):
+            fail(f"linear_attention {shape} launched {[name for name, _ in row['per_launch']]}, "
+                 f"not {forward_launches(la, shape)}")
+        row["cuda_launches"] = len(row["per_launch"])
         rows[shape] = row
+        split = "".join(f", {short_name(name)} {ms:.4f}" for name, ms in row["per_launch"])
         print(f"linear_attention {shape}: max_abs_err {err:.3e} (|ref| <= {row['max_abs_ref']:.3f}, "
-              f"tol {LA_TOL}) kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
+              f"tol {LA_TOL}) kernel {row['ms']:.4f} ms{split} plain {row['plain_ms']:.4f} ms "
               f"bound {1e3 * row['bound_ms']:.2f} us", flush=True)
         if not err <= LA_TOL:
             fail(f"linear_attention kernel disagrees with its plain version at {shape}: {err}")
@@ -987,16 +1006,28 @@ def label_of(mixed: bool, flags=()) -> str:
 
 # ------------------------------------------------------------------ paths
 
+def random_tedm(tmp):
+    """The state and config of a TEDM model at the repo's default width,
+    random weights from the seed, built on the card."""
+    from tedm_tpu_torch.config import Config
+    from tedm_tpu_torch.trainers.datasetdm import build_task
+
+    cfg = Config(log_dir=os.path.join(tmp, "serve", "run")).replace(
+        experiment="TEDM", n_labelled_images=1, seed=SEED,
+        saved_diffusion_model=os.path.join(tmp, "no_backbone"),
+    ).apply_experiment_preset()
+    task = build_task(cfg, device="cuda")  # random weights from cfg.seed
+    return {"backbone": task.unet.state_dict(), "classifier": task.classifier.state_dict()}, cfg
+
+
 def serve(tmp, mixed: bool, flags=(), flag_off=None):
     """Phases 4, 8 and 12: the serving path. fp32 without flags: a TEDM model
     with random weights from the seed, saved and served; otherwise the same
     weights under a config with ``mixed_precision`` and the opt-in ``flags``.
     Returns the launches, the probabilities of one request (image 0, fixed
     noise) and the median latency."""
-    from tedm_tpu_torch.config import Config
     from tedm_tpu_torch.kernels import resblock as rb
     from tedm_tpu_torch.serve.app import Predictor
-    from tedm_tpu_torch.trainers.datasetdm import build_task
     from tedm_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
     label = label_of(mixed, flags)
@@ -1006,13 +1037,7 @@ def serve(tmp, mixed: bool, flags=(), flag_off=None):
         cfg = cfg.replace(mixed_precision=mixed, **{f[2:]: True for f in flags})
         logs = os.path.join(tmp, "serve_" + "_".join(["bf16"] * mixed + [f[13:] for f in flags]), "logs")
     else:
-        cfg = Config(log_dir=os.path.join(tmp, "serve", "run")).replace(
-            experiment="TEDM", n_labelled_images=1, seed=SEED,
-            saved_diffusion_model=os.path.join(tmp, "no_backbone"),
-        ).apply_experiment_preset()
-        task = build_task(cfg, device="cuda")  # random weights from cfg.seed
-        state = {"backbone": task.unet.state_dict(), "classifier": task.classifier.state_dict()}
-        del task
+        state, cfg = random_tedm(tmp)
         logs = logs32
     save_checkpoint(os.path.join(logs, "TEDM", "1", "best"), state, cfg)
     del state
@@ -1409,7 +1434,11 @@ def main() -> None:
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in fwd_rows.values()) else "operations",
         "library_ms": None,  # no single PyTorch call computes this function
         "train_step": calls_sum(fwd_rows, 2 * TRAIN_SHAPES),
+        # CUDA launches of one request's and one step's 8 calls, as phase 3 profiled them
+        "cuda_launches": {"request": sum(fwd_rows[sh]["cuda_launches"] for sh in 2 * SERVE_SHAPES),
+                          "train_step": sum(fwd_rows[sh]["cuda_launches"] for sh in 2 * TRAIN_SHAPES)},
         "per_shape": list(fwd_rows.values()),
+        "per_launch": {str(k): r["per_launch"] for k, r in fwd_rows.items()},
     }, {
         "name": "linear_attention_backward",
         "route": "cuda",

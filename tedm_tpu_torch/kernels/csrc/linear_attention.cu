@@ -25,20 +25,36 @@
 // Design. The TPU kernels hold one (b, h) row of N in VMEM and walk the grid
 // in order. On the H100 one block per (b, h) would fill 32 of 132 SMs and a
 // row does not fit in shared memory, so N is split across blocks.
-// Forward, three launches on the caller's stream, on the CUDA cores:
-//   1. context_partials: grid (chunks of 512 columns, B*h). A block stages
-//      128-column tiles of k and v in shared memory and keeps a running
-//      row max m[d], sum-exp l[d] and unnormalised context
-//      P[d][e] = sum_n exp(k[d,n] - m[d]) v[e,n], rescaled by exp(m_old - m)
-//      when the max grows (the online softmax). Each thread owns a 4x4
-//      block of P over a quarter of the tile's columns; the quarters are
-//      summed once at the end.
-//   2. combine_context: grid B*h. Merges the chunks' (m, l, P) into
-//      scale*C[d][e] = scale * sum_c P_c exp(m_c - m) / (N * sum_c l_c exp(m_c - m))
-//      and writes it with the row statistics (m, l) for the backward.
-//   3. apply_context: grid (N / 256, B*h). One thread per column: softmax
-//      of q over d in registers, then out[e] = sum_d (scale C)[d][e] s[d]
-//      with the context in shared memory, read as float4.
+// Forward: the columns of a (b, h) are cut into shares, one a block. A block stages tiles of
+// TW = 128 columns of k and v (each row a contiguous run) by cp.async a tile ahead of use, and
+// each of its 8 warps takes a 16-column slice of each tile. Per slice: lane d takes row d of k,
+// the slice's row max, exp(k - m) in place and the factor exp(m_old - m) by which its running
+// sum l and the context P[d][e] = sum exp(k[d,c] - m[d]) v[e,c] are rescaled (the online
+// softmax); then P += E V^T as mma.sync m16n8k8 products in split TF32, from 0 for each slice,
+// added to P by an fmaf (the tensor cores' own accumulation rounds toward zero). A warp's first
+// column is added by an fmaf, not on the tensor cores: the split-TF32 product of 1 and v keeps
+// 22 of v's 24 bits, and at N = 1 scale*C must be (scale / N) v bit for bit, which the
+// backward's dk = 0 there needs (see below). The warps' (m, l, P) are merged in warp order, the
+// shares' in share order (the same sums from run to run), into scale*C = scale P / (N l) and the
+// statistics (m, l); then q is staged the same way, and out = (scale C)^T softmax_d(q) computed
+// as split-TF32 products, staged in the slice's place and written 16 bytes a lane. Two routes,
+// by B*h and N (forward_route):
+//   - la_cluster, one launch, for N <= 2 TW (and N <= 8 TW at B*h > 33): a thread-block
+//     cluster of 2 CTAs for each (b, h), a share for each. The CTAs merge their (m, l, P)
+//     through distributed shared memory in rank order, each CTA all of them (rank 0 writes
+//     scale*C and the statistics), while their first q tile lands; then each applies the
+//     context to its own share.
+//   - context_chunks + apply_chunks, two launches, above: blocks of chunks of columns, two an
+//     SM, write their (m, l, P) to a workspace; the last block of each (b, h) to arrive (an
+//     atomic ticket, which it resets) merges the chunks in chunk order. apply_chunks, a
+//     programmatic dependent launch, stages its first q tile while context_chunks ends; its
+//     blocks take fewer columns, three an SM, as its registers allow.
+// scripts/port/kernel_sweeps.py times both routes, clusters of 1 to 8 CTAs (CLUSTER), slice
+// widths, warps, stages and blocks an SM, each in a copy of this source with its constants
+// replaced and its route forced, at the 8 path shapes (PERF.md section 6): clusters of 2 win at
+// N = 256, and at N = 1024 at batch 16, where the two launches' merge through device memory
+// costs more than the work; the two launches above, where one CTA a cluster member leaves SMs
+// idle or runs in two rounds.
 // Backward, two launches, from the forward's scale*C and (m, l); each of q,
 // k, v and g is read once and each of dq, dk and dv written once:
 //   1. grad_q: grid (chunks of columns, B*h), 8 warps a block; a warp takes
@@ -64,252 +80,28 @@
 // slices' staging sets their time; wider slices, deeper pipelines and
 // narrower blocks were slower there.
 // The scratch is allocated by the caller (la_workspace_floats,
-// la_backward_workspace_floats), as are the backward's arrival counters.
+// la_backward_workspace_floats), as are the arrival counters.
 //
 // q, k, v and g may each have any batch stride; within a batch element they
 // must be contiguous (head stride d*N, row stride N). out, dq, dk and dv are
 // contiguous.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "tensor_core.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int D = 32;                      // dim_head
-constexpr int TILE = 128;                  // columns staged per tile
-constexpr int CHUNK = 4 * TILE;            // columns per block of pass 1
-constexpr int CTX_THREADS = 256;           // threads of pass 1
-constexpr int GROUP_COLS = TILE / 4;       // columns per thread group of pass 1
-constexpr int COLS = 256;                  // columns (threads) per block of pass 3
-constexpr int PARTIAL = 2 * D + D * D;     // m[D], l[D], P[D][D] per forward chunk
-
-static_assert(4 * D * D <= D * (TILE + 1), "the reduction buffer reuses a staged tile");
-static_assert(COLS == D * D / 4, "pass 3 loads a d x d matrix with one float4 per thread");
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Thread t of a pass-1 block owns rows d0..d0+3 and columns e0..e0+3 of the
-// d x d sum, over the quarter `grp` of the tile's columns.
-struct Block4x4 {
-  int grp, d0, e0;
-  __device__ explicit Block4x4(int t) : grp(t / 64), d0((t % 64) / 8 * 4), e0((t % 8) * 4) {}
-};
-
-// acc[i][j] += sum over this thread's columns of a[d0+i][col] * b[e0+j][col]
-__device__ __forceinline__ void accumulate_tile(float (&acc)[4][4], const float (&a)[D][TILE + 1],
-                                                const float (&b)[D][TILE + 1], Block4x4 blk) {
-  for (int col = blk.grp * GROUP_COLS; col < (blk.grp + 1) * GROUP_COLS; ++col) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[blk.d0 + i][col];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[blk.e0 + j][col];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// Sums the four column groups' blocks into out[0 .. D*D), through `red`
-// (4*D*D floats of shared memory no longer in use). Ends synchronised.
-__device__ __forceinline__ void reduce_groups(const float (&acc)[4][4], float* red, Block4x4 blk,
-                                              float* __restrict__ out) {
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) red[blk.grp * D * D + (blk.d0 + i) * D + blk.e0 + j] = acc[i][j];
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < D * D; idx += CTX_THREADS)
-    out[idx] = (red[idx] + red[D * D + idx]) + (red[2 * D * D + idx] + red[3 * D * D + idx]);
-}
-
-// ------------------------------------------------------------------ forward
-
-__global__ void __launch_bounds__(CTX_THREADS)
-context_partials(const float* __restrict__ k, const float* __restrict__ v,
-                 long long k_bstride, long long v_bstride, int heads, int n,
-                 int n_chunks, float* __restrict__ partials) {
-  // +1 column of padding: the rows read together in the contraction fall in
-  // distinct banks
-  __shared__ float ks[D][TILE + 1];
-  __shared__ float vs[D][TILE + 1];
-  __shared__ float m_run[D], l_run[D], fac[D];
-
-  const int bh = blockIdx.y, chunk = blockIdx.x, t = threadIdx.x;
-  const int b = bh / heads, h = bh % heads;
-  const float* kb = k + b * k_bstride + (long long)h * D * n;
-  const float* vb = v + b * v_bstride + (long long)h * D * n;
-  const int warp = t / 32, lane = t % 32;
-  const Block4x4 blk(t);
-  float acc[4][4] = {};
-
-  if (t < D) {
-    m_run[t] = -INFINITY;
-    l_run[t] = 0.f;
-  }
-  const int start = chunk * CHUNK;
-  const int end = min(start + CHUNK, n);
-  for (int base = start; base < end; base += TILE) {
-    __syncthreads();  // the previous tile is consumed; m_run/l_run initialised
-    const int c = t % TILE;
-    const bool valid = base + c < end;
-    for (int row = t / TILE; row < D; row += CTX_THREADS / TILE) {
-      // a column past the end contributes exp(-inf) = 0 to every sum
-      ks[row][c] = valid ? kb[(long long)row * n + base + c] : -INFINITY;
-      vs[row][c] = valid ? vb[(long long)row * n + base + c] : 0.f;
-    }
-    __syncthreads();
-    // warp w owns rows 4w..4w+3: tile max, new running max, exp in place
-    for (int i = 0; i < 4; ++i) {
-      const int row = warp * 4 + i;
-      float x[TILE / 32];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < TILE / 32; ++j) {
-        x[j] = ks[row][lane + 32 * j];
-        mx = fmaxf(mx, x[j]);
-      }
-      const float m_old = m_run[row];
-      const float m_new = fmaxf(m_old, warp_max(mx));  // finite: column base is valid
-      float s = 0.f;
-#pragma unroll
-      for (int j = 0; j < TILE / 32; ++j) {
-        const float e = expf(x[j] - m_new);
-        ks[row][lane + 32 * j] = e;
-        s += e;
-      }
-      s = warp_sum(s);
-      if (lane == 0) {
-        const float f = expf(m_old - m_new);  // 0 on the first tile
-        fac[row] = f;
-        l_run[row] = l_run[row] * f + s;
-        m_run[row] = m_new;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float f = fac[blk.d0 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= f;
-    }
-    accumulate_tile(acc, ks, vs, blk);
-  }
-  float* out = partials + ((long long)bh * n_chunks + chunk) * PARTIAL;
-  reduce_groups(acc, &ks[0][0], blk, out + 2 * D);
-  if (t < D) {
-    out[t] = m_run[t];
-    out[D + t] = l_run[t];
-  }
-}
-
-__global__ void __launch_bounds__(D * D)
-combine_context(const float* __restrict__ partials, int n_chunks, int n, float scale,
-                float* __restrict__ ctx, float* __restrict__ stats) {
-  const int bh = blockIdx.x, t = threadIdx.x, d = t / D;
-  const float* p = partials + (long long)bh * n_chunks * PARTIAL;
-  float m = -INFINITY;
-  for (int c = 0; c < n_chunks; ++c) m = fmaxf(m, p[c * PARTIAL + d]);
-  float l = 0.f, acc = 0.f;
-  for (int c = 0; c < n_chunks; ++c) {
-    const float* pc = p + c * PARTIAL;
-    const float f = expf(pc[d] - m);
-    l = fmaf(pc[D + d], f, l);
-    acc = fmaf(pc[2 * D + t], f, acc);
-  }
-  ctx[(long long)bh * D * D + t] = acc * (scale / (l * (float)n));
-  if (t % D == 0) {  // softmax_N(k) = exp(k - m) / l, for the backward
-    stats[(long long)bh * 2 * D + d] = m;
-    stats[(long long)bh * 2 * D + D + d] = l;
-  }
-}
-
-// Loads column `col` of a (D, n) row-major matrix into x.
-__device__ __forceinline__ void load_column(float (&x)[D], const float* base, int n) {
-#pragma unroll
-  for (int d = 0; d < D; ++d) x[d] = base[(long long)d * n];
-}
-
-// softmax over d, in place
-__device__ __forceinline__ void softmax_d(float (&x)[D]) {
-  float mx = -INFINITY;
-#pragma unroll
-  for (int d = 0; d < D; ++d) mx = fmaxf(mx, x[d]);
-  float sum = 0.f;
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    x[d] = expf(x[d] - mx);
-    sum += x[d];
-  }
-  const float inv = 1.f / sum;
-#pragma unroll
-  for (int d = 0; d < D; ++d) x[d] *= inv;
-}
-
-__global__ void __launch_bounds__(COLS)
-apply_context(const float* __restrict__ q, long long q_bstride, int heads, int n,
-              const float* __restrict__ ctx, float* __restrict__ out) {
-  __shared__ float4 cs[D * D / 4];  // scale*C[d][e], e fastest
-  const int bh = blockIdx.y, t = threadIdx.x;
-  const int b = bh / heads, h = bh % heads;
-  cs[t] = reinterpret_cast<const float4*>(ctx + (long long)bh * D * D)[t];
-  __syncthreads();
-  const int col = blockIdx.x * COLS + t;
-  if (col >= n) return;
-  float s[D];
-  load_column(s, q + b * q_bstride + (long long)h * D * n + col, n);
-  softmax_d(s);
-  float* ob = out + (long long)bh * D * n + col;
-#pragma unroll
-  for (int e4 = 0; e4 < D / 4; ++e4) {
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      const float4 c = cs[d * (D / 4) + e4];
-      a.x = fmaf(c.x, s[d], a.x);
-      a.y = fmaf(c.y, s[d], a.y);
-      a.z = fmaf(c.z, s[d], a.z);
-      a.w = fmaf(c.w, s[d], a.w);
-    }
-    ob[(long long)(4 * e4 + 0) * n] = a.x;
-    ob[(long long)(4 * e4 + 1) * n] = a.y;
-    ob[(long long)(4 * e4 + 2) * n] = a.z;
-    ob[(long long)(4 * e4 + 3) * n] = a.w;
-  }
-}
-
-// ----------------------------------------------------------------- backward
-
-constexpr int WARPS = 8;                   // warps of a backward block
-constexpr int BWD_THREADS = 32 * WARPS;
-constexpr int W = 16;                      // columns of a warp's slice
-constexpr int WP = W + 4;                  // row stride of a staged slice (floats): the A and
-                                           // B^T fragment reads fall in 32 distinct banks
-constexpr int NT = W / 8;                  // 8-column n-tiles (and k-steps) of a slice
-constexpr int LPC = 32 / W;                // lanes of a column in the elementwise passes
-constexpr int SLICE = D * WP;              // floats of one staged 32 x W slice
-constexpr int STAGES = 2;                  // slices a warp has staged, the one in use included
 constexpr int FRAG = 2 * 4 * 32 * 4;       // a 32 x 32 A operand: 2 m-tiles x 4 k-steps x 32
                                            // lanes x 4 values, one TF32 plane
-constexpr int STAGE_FLOATS = WARPS * STAGES * 2 * SLICE;
-constexpr int BWD_BLOCKS_PER_SM = 2;      // blocks an SM holds (shared memory, registers)
-constexpr int BWD_MIN_BLOCKS = BWD_BLOCKS_PER_SM * 132;  // a block for each slot of the H100's 132 SMs
 
-static_assert(WARPS * D * D <= STAGE_FLOATS, "the warps' dC' sums reuse the staged slices");
-static_assert(W == 16 || W == 32, "a slice is one or two lanes a column");
+// ------------------------------------------------------------------ staging and products
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(tc::smem_addr(dst)),
@@ -327,32 +119,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Copies columns col0 .. col0 + W - 1 of the (D, n) row-major matrix src into the slice dst
-// (D x WP), asynchronously, one warp; columns at or past n read as 0. VEC: n and the matrix's
-// start are 16-byte multiples, so a row's W columns are 4 copies of 16 bytes.
-template <bool VEC>
-__device__ __forceinline__ void stage_slice(float* dst, const float* src, int n, int col0,
-                                            int lane) {
-  if (VEC) {  // W / 4 copies of 16 bytes a row; lane takes copy lane % (W / 4) of its rows
-    constexpr int CPR = W / 4;
-    const int j = lane % CPR, col = col0 + 4 * j;
-    const bool valid = col < n;
-#pragma unroll
-    for (int i = 0; i < D * CPR / 32; ++i) {
-      const int d = lane / CPR + (32 / CPR) * i;
-      cp_async16(dst + d * WP + 4 * j, src + (long long)d * n + (valid ? col : 0), valid);
-    }
-  } else {
-    const int j = lane % W, col = col0 + j;
-    const bool valid = col < n;
-#pragma unroll
-    for (int i = 0; i < D / LPC; ++i) {
-      const int d = lane / W + LPC * i;
-      cp_async4(dst + d * WP + j, src + (long long)d * n + (valid ? col : 0), valid);
-    }
-  }
 }
 
 // The 32 x 32 row-major matrix m (transposed if `transpose`) as mma.sync m16n8k8 A operands in
@@ -384,6 +150,623 @@ __device__ __forceinline__ void mma_split(float (&d)[4], const float4& ah, const
 
 __device__ __forceinline__ float4 frag(const float* plane, int mt, int ks, int lane) {
   return reinterpret_cast<const float4*>(plane)[(4 * mt + ks) * 32 + lane];
+}
+
+// ------------------------------------------------------------------ forward
+
+constexpr int FWARPS = 8;                   // warps of a forward block
+constexpr int FTHREADS = 32 * FWARPS;
+constexpr int FW = 16;                      // columns of a warp's slice of a tile
+constexpr int TW = FW * FWARPS;             // columns of a block's tile
+constexpr int TWP = TW + 4;                 // row stride of a staged tile (floats): a lane's row
+                                            // as float4s and the A and B fragment reads of the
+                                            // context are free of bank conflicts
+constexpr int FNT = FW / 8;                 // 8-column k-steps (and n-tiles) of a slice
+constexpr int FLPC = 32 / FW;               // lanes of a column in the softmax over d
+constexpr int FTILE = D * TWP;              // floats of one staged 32 x TW tile
+constexpr int FSTAGES = 2;                  // tiles the block has staged, the one in use included
+constexpr int RING = FSTAGES * 2 * FTILE;   // the block's ring: FSTAGES slots of a k and a v tile;
+                                            // in the apply its first half holds q's slots
+constexpr int PART = 2 * D + D * D;         // (m[d], l[d], P[d][e]) of a share of the columns
+constexpr int FWD_BLOCKS_PER_SM = 2;        // blocks an SM holds (registers, shared memory)
+constexpr int SMS = 132;                    // the H100's SMs
+constexpr int FWD_MIN_BLOCKS = FWD_BLOCKS_PER_SM * SMS;  // a block for each slot
+// apply_chunks holds fewer registers and less shared memory: 24 warps an SM
+constexpr int APPLY_BLOCKS_PER_SM = FWARPS < 24 ? 24 / FWARPS : 1;
+constexpr int APPLY_MIN_BLOCKS = APPLY_BLOCKS_PER_SM * SMS;
+constexpr int CLUSTER = 2;                  // CTAs of la_cluster's cluster, one a share
+
+static_assert(FWARPS * PART + FWARPS * D <= RING,
+              "the warps' partials and merge factors reuse the ring");
+static_assert((FSTAGES - 1) * FTILE + CLUSTER * D <= RING,
+              "the cluster's merge factors follow q's first slots");
+static_assert(CLUSTER >= 1 && CLUSTER <= 8, "a portable cluster size");
+static_assert(FW == 16 || FW == 32, "a slice is one or two lanes a column");
+
+// d += a b in split TF32 (a_lo b_hi + a_hi b_lo + a_hi b_hi), a and b as their hi and lo parts
+__device__ __forceinline__ void mma_split(float (&d)[4], const tc::Split (&a)[4],
+                                          const tc::Split& b0, const tc::Split& b1) {
+  tc::mma_tf32(d, a[0].lo, a[1].lo, a[2].lo, a[3].lo, b0.hi, b1.hi);
+  tc::mma_tf32(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b0.lo, b1.lo);
+  tc::mma_tf32(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b0.hi, b1.hi);
+}
+
+// A warp's online softmax over N and context over the slices it has taken: m and l of row `lane`
+// (the row max of k and the sum of exp(k - m)), and P[d][e] = sum_c exp(k[d,c] - m[d]) v[e,c] in
+// the mma.sync D layout, p[mt][nt][i] at row 16 mt + gq + 8 (i >> 1), column 8 nt + 2 tq + (i & 1).
+struct Context {
+  float m = -INFINITY, l = 0.f;
+  float p[2][4][4] = {};
+};
+
+__device__ __forceinline__ int tiles_of(int start, int end) {
+  return end > start ? (end - start + TW - 1) / TW : 0;
+}
+
+// Stages the tile of columns t0 .. t0 + TW - 1 of the (D, n) row-major matrix src into dst (D
+// rows of TWP floats), asynchronously, by the block: 16-byte copies where VEC (n and the
+// matrix's start 16-byte multiples), else 4-byte ones, consecutive threads on consecutive
+// columns of a row, so that a warp reads a contiguous run; columns at or past n read as 0.
+template <bool VEC>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src, int n, int t0) {
+  constexpr int PER = VEC ? 4 : 1, CPR = TW / PER;  // floats a copy, copies a row
+#pragma unroll
+  for (int i = 0; i < D * CPR / FTHREADS; ++i) {
+    const int c = threadIdx.x + FTHREADS * i, d = c / CPR, j = PER * (c % CPR), col = t0 + j;
+    const bool valid = col < n;
+    const float* from = src + (long long)d * n + (valid ? col : 0);
+    if (VEC)
+      cp_async16(dst + d * TWP + j, from, valid);
+    else
+      cp_async4(dst + d * TWP + j, from, valid);
+  }
+}
+
+// Folds the warp's slices of the columns [start, end), columns warp * FW .. of each tile of TW,
+// into cx; the tiles staged by cp.async FSTAGES - 1 ahead into the block's ring. Per slice: lane
+// d takes row d of k, the new row max, exp(k - m) in place (0 past end) and the factor exp(m_old
+// - m) that rescales l and P; then P += E V^T on the tensor cores in split TF32, the warp's first
+// column by an fmaf. Called by the whole block; returns with every copy landed and every warp
+// done with the ring.
+template <bool VEC>
+__device__ __forceinline__ void context_tiles(Context& cx, const float* kb, const float* vb, int n,
+                                              int start, int end, float* ring, int warp,
+                                              int lane) {
+  const int gq = lane >> 2, tq = lane & 3, tiles = tiles_of(start, end);
+  for (int i = 0; i < FSTAGES - 1; ++i) {  // the first tiles, one a stage but the last
+    if (i < tiles) {
+      stage_tile<VEC>(ring + i * 2 * FTILE, kb, n, start + i * TW);
+      stage_tile<VEC>(ring + i * 2 * FTILE + FTILE, vb, n, start + i * TW);
+    }
+    cp_async_commit();
+  }
+  for (int it = 0; it < tiles; ++it) {
+    const int ahead = it + FSTAGES - 1;
+    if (ahead < tiles) {
+      float* nb = ring + (ahead % FSTAGES) * 2 * FTILE;
+      stage_tile<VEC>(nb, kb, n, start + ahead * TW);
+      stage_tile<VEC>(nb + FTILE, vb, n, start + ahead * TW);
+    }
+    cp_async_commit();
+    cp_async_wait<FSTAGES - 1>();
+    __syncthreads();  // the tile has landed, every thread's copies
+    const int col0 = start + it * TW + warp * FW;
+    if (col0 < end) {
+      float* ks = ring + (it % FSTAGES) * 2 * FTILE + warp * FW;
+      const float* vs = ks + FTILE;
+      float4* row = reinterpret_cast<float4*>(ks + lane * TWP);
+      float x[FW];
+#pragma unroll
+      for (int j = 0; j < FW / 4; ++j) {
+        const float4 u = row[j];
+        x[4 * j] = u.x;
+        x[4 * j + 1] = u.y;
+        x[4 * j + 2] = u.z;
+        x[4 * j + 3] = u.w;
+      }
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < FW; ++j)
+        if (col0 + j < end) mx = fmaxf(mx, x[j]);
+      const float m_new = fmaxf(cx.m, mx);  // finite: column col0 is in [start, end)
+      const float f = expf(cx.m - m_new);   // 0 on the warp's first slice
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < FW; ++j) {
+        x[j] = col0 + j < end ? expf(x[j] - m_new) : 0.f;
+        sum += x[j];
+      }
+      // the warp's first column is added to P by an fmaf below, not on the tensor cores: the
+      // split-TF32 product of 1 and v keeps 22 of v's 24 bits, and at N = 1 (p = 1) scale*C must
+      // be (scale / N) v bit for bit
+      const bool first = cx.m == -INFINITY;  // the same in every lane
+      const float e0 = x[0];
+      if (first) x[0] = 0.f;
+#pragma unroll
+      for (int j = 0; j < FW / 4; ++j)
+        row[j] = make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+      cx.l = fmaf(cx.l, f, sum);
+      cx.m = m_new;
+      __syncwarp();
+
+      // P[d][e] = P[d][e] f[d] + sum_c E[d][c] V[e][c]: A = E (row d, k = column), B = V^T (k =
+      // column, n = e). The slice's products start from 0 and are added to P by an fmaf: the
+      // tensor cores' own accumulation rounds toward zero, and a chain of them over all of a
+      // share drifts by some 2^-24 of P for each.
+      float sp[2][4][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < FNT; ++kk) {
+        tc::Split a[2][4], b[4][2];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            a[mt][i] =
+                tc::split(ks[(16 * mt + gq + 8 * (i & 1)) * TWP + 8 * kk + tq + 4 * (i >> 1)]);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          b[nt][0] = tc::split(vs[(8 * nt + gq) * TWP + 8 * kk + tq]);
+          b[nt][1] = tc::split(vs[(8 * nt + gq) * TWP + 8 * kk + tq + 4]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_split(sp[mt][nt], a[mt], b[nt][0], b[nt][1]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = 16 * mt + 8 * hf + gq;                  // a row of P this lane holds
+          const float fr = __shfl_sync(0xffffffffu, f, r);      // its factor
+          const float er = __shfl_sync(0xffffffffu, e0, r);     // its first column's exp
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const float s = sp[mt][nt][2 * hf + j];
+              const float add = first ? fmaf(er, vs[(8 * nt + 2 * tq + j) * TWP], s) : s;
+              cx.p[mt][nt][2 * hf + j] = fmaf(cx.p[mt][nt][2 * hf + j], fr, add);
+            }
+        }
+    }
+    __syncthreads();  // every warp is done with the tile: the next iteration may stage into it
+  }
+  cp_async_wait<0>();
+}
+
+// cx as a partial (m, l, P) of PART floats
+__device__ __forceinline__ void store_context(const Context& cx, float* part, int lane) {
+  const int gq = lane >> 2, tq = lane & 3;
+  part[lane] = cx.m;
+  part[D + lane] = cx.l;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        part[2 * D + (16 * mt + gq + 8 * (i >> 1)) * D + 8 * nt + 2 * tq + (i & 1)] =
+            cx.p[mt][nt][i];
+}
+
+template <bool GLOBAL>
+__device__ __forceinline__ float load1(const float* p) {
+  return GLOBAL ? __ldcg(p) : *p;
+}
+template <bool GLOBAL>
+__device__ __forceinline__ float4 load4(const float* p) {
+  return GLOBAL ? __ldcg(reinterpret_cast<const float4*>(p)) : *reinterpret_cast<const float4*>(p);
+}
+
+// Merges `count` partials in order into out, by the block: m = max_c m_c, f_c = exp(m_c - m) (0
+// for a partial of no columns, m_c = -inf), l = sum_c l_c f_c and P = sum_c P_c f_c, each an fmaf
+// chain in c. part(c) points at partial c, 16-byte aligned; GLOBAL: in device memory, written by
+// other blocks of the grid, read through L2. fac is count * D floats of shared memory.
+template <bool GLOBAL, class Part>
+__device__ __forceinline__ void merge_parts(int count, Part part, float* fac, float* out) {
+  const int t = threadIdx.x;
+  if (t < D) {
+    float m = -INFINITY;
+    for (int c = 0; c < count; ++c) m = fmaxf(m, load1<GLOBAL>(part(c) + t));
+    float l = 0.f;
+    for (int c = 0; c < count; ++c) {
+      const float mc = load1<GLOBAL>(part(c) + t);
+      const float f = mc == -INFINITY ? 0.f : expf(mc - m);
+      fac[c * D + t] = f;
+      l = fmaf(load1<GLOBAL>(part(c) + D + t), f, l);
+    }
+    out[t] = m;
+    out[D + t] = l;
+  }
+  __syncthreads();
+  for (int i = t; i < D * D / 4; i += blockDim.x) {  // P[d][4 (i % 8) ..], d = i / 8
+    const float* fd = fac + i / (D / 4);
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int c = 0; c < count; ++c) {
+      const float4 p = load4<GLOBAL>(part(c) + 2 * D + 4 * i);
+      const float f = fd[c * D];
+      acc.x = fmaf(p.x, f, acc.x);
+      acc.y = fmaf(p.y, f, acc.y);
+      acc.z = fmaf(p.z, f, acc.z);
+      acc.w = fmaf(p.w, f, acc.w);
+    }
+    reinterpret_cast<float4*>(out + 2 * D)[i] = acc;
+  }
+}
+
+// P of a merged partial into scale*C[d][e] = P[d][e] * (scale / (l[d] * n)), in place
+__device__ __forceinline__ void scale_context(float* merged, float scale, int n) {
+  for (int i = threadIdx.x; i < D * D; i += blockDim.x)
+    merged[2 * D + i] *= scale / (merged[D + i / D] * (float)n);
+}
+
+// scale*C and the statistics (m, l) of a merged partial to (b, h)'s rows of ctx and stats
+__device__ __forceinline__ void write_context(const float* merged, float* ctx, float* stats,
+                                              int bh) {
+  for (int i = threadIdx.x; i < D * D / 4; i += blockDim.x)
+    reinterpret_cast<float4*>(ctx + (long long)bh * D * D)[i] =
+        reinterpret_cast<const float4*>(merged + 2 * D)[i];
+  if (threadIdx.x < 2 * D) stats[(long long)bh * 2 * D + threadIdx.x] = merged[threadIdx.x];
+}
+
+// Stages the first FSTAGES - 1 tiles of q in [start, end) into qring (slots of FTILE), by the block
+template <bool VEC>
+__device__ __forceinline__ void stage_first_q(float* qring, const float* qb, int n, int start,
+                                              int end) {
+  const int tiles = tiles_of(start, end);
+  for (int i = 0; i < FSTAGES - 1; ++i) {
+    if (i < tiles) stage_tile<VEC>(qring + i * FTILE, qb, n, start + i * TW);
+    cp_async_commit();
+  }
+}
+
+// Writes the staged slice src (D rows of TWP floats) to columns col0 .. of the (D, n) row-major
+// matrix dst, those below end: 16 bytes a lane where VEC, so that a warp writes whole runs of a
+// row; else a lane a column.
+template <bool VEC>
+__device__ __forceinline__ void store_slice(const float* src, float* dst, int n, int col0, int end,
+                                            int lane) {
+  if (VEC) {
+    constexpr int CPR = FW / 4;  // 16-byte runs of a row
+    const int j = lane % CPR, col = col0 + 4 * j;
+#pragma unroll
+    for (int i = 0; i < D * CPR / 32; ++i) {
+      const int d = lane / CPR + (32 / CPR) * i;
+      if (col < end)
+        *reinterpret_cast<float4*>(dst + (long long)d * n + col) =
+            *reinterpret_cast<const float4*>(src + d * TWP + 4 * j);
+    }
+  } else {
+    const int j = lane % FW, col = col0 + j;
+#pragma unroll
+    for (int i = 0; i < D / FLPC; ++i) {
+      const int d = lane / FW + FLPC * i;
+      if (col < end) dst[(long long)d * n + col] = src[d * TWP + j];
+    }
+  }
+}
+
+// out = (scale C)^T softmax_d(q) over the warp's slices of [start, end), columns warp * FW .. of
+// each tile, the first FSTAGES - 1 tiles staged by stage_first_q: per slice, s = softmax_d(q) in
+// place, then the product with cfr (scale C transposed, from a_fragments) in split TF32, staged in
+// the slice's place and written. Called by the whole block.
+template <bool VEC>
+__device__ __forceinline__ void apply_tiles(float* qring, const float* qb, float* ob, int n,
+                                            int start, int end, const float* cfr, int warp,
+                                            int lane) {
+  const int gq = lane >> 2, tq = lane & 3, tiles = tiles_of(start, end);
+  for (int it = 0; it < tiles; ++it) {
+    const int ahead = it + FSTAGES - 1;
+    if (ahead < tiles)
+      stage_tile<VEC>(qring + (ahead % FSTAGES) * FTILE, qb, n, start + ahead * TW);
+    cp_async_commit();
+    cp_async_wait<FSTAGES - 1>();
+    __syncthreads();  // the tile has landed, every thread's copies
+    const int col0 = start + it * TW + warp * FW;
+    if (col0 < end) {
+      float* qs = qring + (it % FSTAGES) * FTILE + warp * FW;
+      {  // softmax over d of each column, in place: lane takes column lane % FW, every FLPC-th row
+        const int j = lane % FW, d0 = lane / FW;
+        float x[D / FLPC], mx = -INFINITY;
+#pragma unroll
+        for (int k = 0; k < D / FLPC; ++k) {
+          x[k] = qs[(d0 + FLPC * k) * TWP + j];
+          mx = fmaxf(mx, x[k]);
+        }
+        if (FLPC == 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+        float sum = 0.f;
+#pragma unroll
+        for (int k = 0; k < D / FLPC; ++k) {
+          x[k] = expf(x[k] - mx);
+          sum += x[k];
+        }
+        if (FLPC == 2) sum += __shfl_xor_sync(0xffffffffu, sum, 16);
+        const float inv = 1.f / sum;
+#pragma unroll
+        for (int k = 0; k < D / FLPC; ++k) qs[(d0 + FLPC * k) * TWP + j] = x[k] * inv;
+      }
+      __syncwarp();
+
+      // out[e][c] = sum_d (scale C)[d][e] s[d][c]: m-tiles of e, n-tiles of the slice's columns
+      float o[2][FNT][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        tc::Split b0[FNT], b1[FNT];
+#pragma unroll
+        for (int nt = 0; nt < FNT; ++nt) {
+          b0[nt] = tc::split(qs[(8 * ks + tq) * TWP + 8 * nt + gq]);
+          b1[nt] = tc::split(qs[(8 * ks + tq + 4) * TWP + 8 * nt + gq]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const float4 ah = frag(cfr, mt, ks, lane), al = frag(cfr + FRAG, mt, ks, lane);
+#pragma unroll
+          for (int nt = 0; nt < FNT; ++nt) mma_split(o[mt][nt], ah, al, b0[nt], b1[nt]);
+        }
+      }
+      __syncwarp();  // s is read: the slice takes out, to be written a row of columns at a time
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+          for (int nt = 0; nt < FNT; ++nt)
+            *reinterpret_cast<float2*>(qs + (16 * mt + 8 * hf + gq) * TWP + 8 * nt + 2 * tq) =
+                make_float2(o[mt][nt][2 * hf], o[mt][nt][2 * hf + 1]);
+      __syncwarp();
+      store_slice<VEC>(qs, ob, n, col0, end, lane);
+    }
+    __syncthreads();  // every warp is done with the tile: the next iteration may stage into it
+  }
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// One launch: a cluster of CTAs for each (b, h) = blockIdx.y, CTA `rank` taking the columns
+// [rank * share, (rank + 1) * share). Its warps fold their slices of k and v into their (m, l,
+// P), which the CTA merges in warp order into its partial; the CTAs' partials are merged in rank
+// order through distributed shared memory, by every CTA, while its first q slices land; then each
+// CTA applies scale*C to its share of q.
+template <bool VEC>
+__global__ void __launch_bounds__(FTHREADS, FWD_BLOCKS_PER_SM)
+la_cluster(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+           long long q_bstride, long long k_bstride, long long v_bstride, int heads, int n,
+           int share, float scale, float* __restrict__ out, float* __restrict__ ctx,
+           float* __restrict__ stats) {
+  extern __shared__ __align__(16) float smem[];
+  float* cpart = smem + RING;           // this CTA's partial, read by the cluster
+  float* merged = cpart + PART;         // every CTA's, merged; then scale*C
+  float* cfr = merged + PART;           // scale*C transposed as A operands, hi and lo planes
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int bh = blockIdx.y, t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int b = bh / heads, h = bh % heads;
+  const long long head = (long long)h * D * n;
+  const int start = min(rank * share, n), end = min(start + share, n);
+
+  Context cx;
+  context_tiles<VEC>(cx, k + b * k_bstride + head, v + b * v_bstride + head, n, start, end, smem,
+                     warp, lane);
+  store_context(cx, smem + warp * PART, lane);  // the warps' partials, in the ring
+  __syncthreads();
+  merge_parts<false>(FWARPS, [&](int w) { return smem + w * PART; }, smem + FWARPS * PART, cpart);
+  __syncthreads();
+  const float* qb = q + b * q_bstride + head;
+  stage_first_q<VEC>(smem, qb, n, start, end);
+  cluster_arrive();  // this CTA's partial is written ...
+  cluster_wait();    // ... and every CTA's is
+  merge_parts<false>(CLUSTER, [&](int r) { return cluster.map_shared_rank(cpart, r); },
+                     smem + (FSTAGES - 1) * FTILE, merged);
+  cluster_arrive();  // done reading the other CTAs' partials; waited for before exit
+  __syncthreads();
+  scale_context(merged, scale, n);
+  __syncthreads();
+  if (rank == 0) write_context(merged, ctx, stats, bh);
+  a_fragments(cfr, merged + 2 * D, true);
+  __syncthreads();
+  apply_tiles<VEC>(smem, qb, out + (long long)bh * D * n, n, start, end, cfr, warp, lane);
+  cluster_wait();  // no CTA leaves while another may still read its partial
+}
+
+// Two launches, 1: block (chunk, b*h) folds the columns [chunk * cols, (chunk + 1) * cols) into
+// a partial, its warps' merged in warp order, written to `partials`; the last block of b*h to
+// arrive merges the chunks' in chunk order into scale*C and the statistics and resets its ticket.
+template <bool VEC>
+__global__ void __launch_bounds__(FTHREADS, FWD_BLOCKS_PER_SM)
+context_chunks(const float* __restrict__ k, const float* __restrict__ v, long long k_bstride,
+               long long v_bstride, int heads, int n, int cols, int n_chunks, float scale,
+               float* __restrict__ partials, float* __restrict__ ctx, float* __restrict__ stats,
+               unsigned* __restrict__ arrivals) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ bool last;
+  float* merged = smem + RING;
+  const int bh = blockIdx.y, chunk = blockIdx.x, t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int b = bh / heads, h = bh % heads;
+  const long long head = (long long)h * D * n;
+  const int start = chunk * cols, end = min(start + cols, n);
+
+  Context cx;
+  context_tiles<VEC>(cx, k + b * k_bstride + head, v + b * v_bstride + head, n, start, end, smem,
+                     warp, lane);
+  // apply_chunks may launch once every block is here: its blocks stage q, then wait for this
+  // grid (griddepcontrol.wait) before they read scale*C
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  store_context(cx, smem + warp * PART, lane);  // the warps' partials, in the ring
+  __syncthreads();
+  float* part = partials + ((long long)bh * n_chunks + chunk) * PART;
+  merge_parts<false>(FWARPS, [&](int w) { return smem + w * PART; }, smem + FWARPS * PART, part);
+
+  // the last block of b*h to get here merges the chunks, in chunk order
+  __threadfence();
+  __syncthreads();
+  if (t == 0) last = atomicAdd(&arrivals[bh], 1u) == (unsigned)(n_chunks - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const float* pb = partials + (long long)bh * n_chunks * PART;
+  merge_parts<true>(n_chunks, [&](int c) { return pb + (long long)c * PART; }, smem, merged);
+  __syncthreads();
+  scale_context(merged, scale, n);
+  __syncthreads();
+  write_context(merged, ctx, stats, bh);
+  if (t == 0) arrivals[bh] = 0;  // ready for the next call
+}
+
+// Two launches, 2: block (chunk, b*h) applies scale*C to its columns of q, in chunks of its own
+// (finer than context_chunks'). A programmatic dependent of context_chunks: it stages its first q
+// tile before it waits for scale*C, which it reads through a plain pointer (loads through a
+// __restrict__ pointer to const may be hoisted above the wait).
+template <bool VEC>
+__global__ void __launch_bounds__(FTHREADS, APPLY_BLOCKS_PER_SM)
+apply_chunks(const float* __restrict__ q, long long q_bstride, int heads, int n, int cols,
+             const float* ctx, float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  float* cfr = smem + FSTAGES * FTILE;
+  const int bh = blockIdx.y, chunk = blockIdx.x, t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int b = bh / heads, h = bh % heads;
+  const int start = chunk * cols, end = min(start + cols, n);
+  const float* qb = q + b * q_bstride + (long long)h * D * n;
+  stage_first_q<VEC>(smem, qb, n, start, end);
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // context_chunks complete, scale*C visible
+  a_fragments(cfr, ctx + (long long)bh * D * D, true);
+  __syncthreads();
+  apply_tiles<VEC>(smem, qb, out + (long long)bh * D * n, n, start, end, cfr, warp, lane);
+}
+
+constexpr int CLUSTER_SMEM = (RING + 2 * PART + 2 * FRAG) * 4;
+constexpr int CHUNKS_SMEM = (RING + PART) * 4;
+constexpr int APPLY_SMEM = (FSTAGES * FTILE + 2 * FRAG) * 4;
+
+// Columns a block of the two-launch route takes: whole tiles, as few as give at least min_blocks
+// blocks where N allows (context_chunks: FWD_MIN_BLOCKS; apply_chunks: APPLY_MIN_BLOCKS)
+int fwd_cols(int bh, int n, int min_blocks) {
+  const int units = (n + TW - 1) / TW;
+  const int per = ((long long)units * bh + min_blocks - 1) / min_blocks;
+  return TW * (per > 0 ? per : 1);
+}
+
+int fwd_chunks(int bh, int n, int min_blocks) {
+  const int cols = fwd_cols(bh, n, min_blocks);
+  return (n + cols - 1) / cols;
+}
+
+// The forward's route for B*h = bh and N = n: CLUSTER for la_cluster, or 0 for the two launches.
+// The cluster where the two launches' merge through device memory costs more than the work: a
+// share of one tile, or of up to 4 where the 2 bh CTAs take more than half the SMs
+// (scripts/port/kernel_sweeps.py)
+int forward_route(int bh, int n) {
+  return n <= 2 * TW || (n <= 8 * TW && 4 * bh > SMS) ? CLUSTER : 0;
+}
+
+template <bool VEC>
+int launch_cluster(const float* q, const float* k, const float* v, float* out, float* ctx,
+                   float* stats, long long q_bstride, long long k_bstride, long long v_bstride,
+                   int bh, int heads, int n, float scale, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(la_cluster<VEC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, CLUSTER_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int share = ((n + CLUSTER - 1) / CLUSTER + 3) / 4 * 4;  // 16-byte runs stay whole
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CLUSTER, bh);
+  cfg.blockDim = dim3(FTHREADS);
+  cfg.dynamicSmemBytes = CLUSTER_SMEM;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, la_cluster<VEC>, q, k, v, q_bstride, k_bstride, v_bstride, heads,
+                           n, share, scale, out, ctx, stats);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <bool VEC>
+int launch_chunks(const float* q, const float* k, const float* v, float* out, float* ctx,
+                  float* stats, float* workspace, unsigned* arrivals, long long q_bstride,
+                  long long k_bstride, long long v_bstride, int bh, int heads, int n, float scale,
+                  cudaStream_t s) {
+  const int cols = fwd_cols(bh, n, FWD_MIN_BLOCKS), n_chunks = fwd_chunks(bh, n, FWD_MIN_BLOCKS);
+  const int apply_cols = fwd_cols(bh, n, APPLY_MIN_BLOCKS);
+  cudaError_t err = cudaFuncSetAttribute(context_chunks<VEC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, CHUNKS_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(apply_chunks<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             APPLY_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  context_chunks<VEC><<<dim3(n_chunks, bh), FTHREADS, CHUNKS_SMEM, s>>>(
+      k, v, k_bstride, v_bstride, heads, n, cols, n_chunks, scale, workspace, ctx, stats, arrivals);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // a programmatic dependent launch: apply_chunks's blocks may start before context_chunks ends
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(fwd_chunks(bh, n, APPLY_MIN_BLOCKS), bh);
+  cfg.blockDim = dim3(FTHREADS);
+  cfg.dynamicSmemBytes = APPLY_SMEM;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, apply_chunks<VEC>, q, q_bstride, heads, n, apply_cols,
+                           static_cast<const float*>(ctx), out);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// ----------------------------------------------------------------- backward
+
+constexpr int WARPS = 8;                   // warps of a backward block
+constexpr int BWD_THREADS = 32 * WARPS;
+constexpr int W = 16;                      // columns of a warp's slice
+constexpr int WP = W + 4;                  // row stride of a staged slice (floats): the A and
+                                           // B^T fragment reads fall in 32 distinct banks
+constexpr int NT = W / 8;                  // 8-column n-tiles (and k-steps) of a slice
+constexpr int LPC = 32 / W;                // lanes of a column in the elementwise passes
+constexpr int SLICE = D * WP;              // floats of one staged 32 x W slice
+constexpr int STAGES = 2;                  // slices a warp has staged, the one in use included
+constexpr int STAGE_FLOATS = WARPS * STAGES * 2 * SLICE;
+constexpr int BWD_BLOCKS_PER_SM = 2;      // blocks an SM holds (shared memory, registers)
+constexpr int BWD_MIN_BLOCKS = BWD_BLOCKS_PER_SM * 132;  // a block for each slot of the H100's 132 SMs
+
+static_assert(WARPS * D * D <= STAGE_FLOATS, "the warps' dC' sums reuse the staged slices");
+static_assert(W == 16 || W == 32, "a slice is one or two lanes a column");
+
+// Copies columns col0 .. col0 + W - 1 of the (D, n) row-major matrix src into the slice dst
+// (D x WP), asynchronously, one warp; columns at or past n read as 0. VEC: n and the matrix's
+// start are 16-byte multiples, so a row's W columns are 4 copies of 16 bytes.
+template <bool VEC>
+__device__ __forceinline__ void stage_slice(float* dst, const float* src, int n, int col0,
+                                            int lane) {
+  if (VEC) {  // W / 4 copies of 16 bytes a row; lane takes copy lane % (W / 4) of its rows
+    constexpr int CPR = W / 4;
+    const int j = lane % CPR, col = col0 + 4 * j;
+    const bool valid = col < n;
+#pragma unroll
+    for (int i = 0; i < D * CPR / 32; ++i) {
+      const int d = lane / CPR + (32 / CPR) * i;
+      cp_async16(dst + d * WP + 4 * j, src + (long long)d * n + (valid ? col : 0), valid);
+    }
+  } else {
+    const int j = lane % W, col = col0 + j;
+    const bool valid = col < n;
+#pragma unroll
+    for (int i = 0; i < D / LPC; ++i) {
+      const int d = lane / W + LPC * i;
+      cp_async4(dst + d * WP + j, src + (long long)d * n + (valid ? col : 0), valid);
+    }
+  }
 }
 
 // Stores the two values of a D fragment row at column col (of n), 8 bytes at once where VEC
@@ -770,34 +1153,41 @@ int launch_backward(const float* q, const float* k, const float* v, const float*
   return (int)cudaGetLastError();
 }
 
-int chunks_of(int n) { return (n + CHUNK - 1) / CHUNK; }
-
 }  // namespace
 
 extern "C" {
 
-// Floats of scratch that la_forward_f32 needs for B*h = bh and N = n.
-long long la_workspace_floats(int bh, int n) { return (long long)bh * chunks_of(n) * PARTIAL; }
+// The forward's route for B*h = bh and N = n: la_cluster's cluster size, or 0 for the two
+// launches (context_chunks, apply_chunks).
+int la_forward_route(int bh, int n) { return forward_route(bh, n); }
 
-// Launches the three forward passes on `stream`; returns cudaGetLastError()
-// after the first launch that fails, else 0. Pointers are device pointers.
-// Besides out (B, h, d, N) it writes ctx = scale*C (B*h*d*d floats, 16-byte
-// aligned) and stats = (m, l) of softmax_N(k) (B*h*2*d floats), which the
-// backward reads. The workspace holds la_workspace_floats(batch * heads, n).
+// Floats of scratch that la_forward_f32 needs for B*h = bh and N = n: the chunks' partials of
+// the two-launch route.
+long long la_workspace_floats(int bh, int n) {
+  return forward_route(bh, n) == 0 ? (long long)bh * fwd_chunks(bh, n, FWD_MIN_BLOCKS) * PART : 0;
+}
+
+// Launches the forward on `stream` by la_forward_route's route; returns the first CUDA error,
+// else 0.
+// Pointers are device pointers. Besides out (B, h, d, N) it writes ctx = scale*C (B*h*d*d
+// floats, 16-byte aligned) and stats = (m, l) of softmax_N(k) (B*h*2*d floats), which the
+// backward reads. The workspace holds la_workspace_floats(batch * heads, n); arrivals holds
+// batch * heads counters that are 0, and are 0 again when the call ends.
 int la_forward_f32(const float* q, const float* k, const float* v, float* out, float* ctx,
-                   float* stats, float* workspace, long long q_bstride, long long k_bstride,
-                   long long v_bstride, int batch, int heads, int n, float scale, void* stream) {
+                   float* stats, float* workspace, unsigned* arrivals, long long q_bstride,
+                   long long k_bstride, long long v_bstride, int batch, int heads, int n,
+                   float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bh = batch * heads, n_chunks = chunks_of(n);
-  context_partials<<<dim3(n_chunks, bh), CTX_THREADS, 0, s>>>(k, v, k_bstride, v_bstride, heads,
-                                                               n, n_chunks, workspace);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  combine_context<<<bh, D * D, 0, s>>>(workspace, n_chunks, n, scale, ctx, stats);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  apply_context<<<dim3((n + COLS - 1) / COLS, bh), COLS, 0, s>>>(q, q_bstride, heads, n, ctx, out);
-  return (int)cudaGetLastError();
+  const int bh = batch * heads;
+  const bool vec = n % 4 == 0 && q_bstride % 4 == 0 && k_bstride % 4 == 0 && v_bstride % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                    reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+  if (forward_route(bh, n) > 0)
+    return (vec ? launch_cluster<true> : launch_cluster<false>)(
+        q, k, v, out, ctx, stats, q_bstride, k_bstride, v_bstride, bh, heads, n, scale, s);
+  return (vec ? launch_chunks<true> : launch_chunks<false>)(q, k, v, out, ctx, stats, workspace,
+                                                            arrivals, q_bstride, k_bstride,
+                                                            v_bstride, bh, heads, n, scale, s);
 }
 
 // Floats of scratch that la_backward_f32 needs for B*h = bh and N = n: the chunks' dC' partials,

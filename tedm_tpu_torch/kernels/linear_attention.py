@@ -14,10 +14,12 @@ models/unet_model.py:178-210. On a CUDA tensor ``linear_attention``
 launches the hand-written Hopper kernels in ``csrc/linear_attention.cu``
 (design and bound in that file's header) through an ``autograd.Function``
 whose backward is a kernel too, or raises; on a CPU tensor it runs
-``linear_attention_reference``, differentiated by autograd. The backward
-kernel runs as two passes, one over q and g and one over k and v;
-``linear_attention_backward_passes`` is their plain version, pass by pass,
-for the tests.
+``linear_attention_reference``, differentiated by autograd. The forward
+kernel folds shares of the columns into online-softmax partials, merges them
+in order and applies the context; the backward kernel runs as two passes,
+one over q and g and one over k and v. ``linear_attention_forward_passes``
+and ``linear_attention_backward_passes`` are their plain versions, pass by
+pass, for the tests.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ from tedm_tpu_torch.kernels import _build
 from tedm_tpu_torch.kernels.tf32 import split_matmul, tf32_split
 
 D_HEAD = 32  # the kernel's compiled head width
+FW = 16      # columns of a warp's slice of a tile in the forward kernel (csrc: FW)
+FWARPS = 8   # warps of a forward block (csrc: FWARPS)
 
 
 def linear_attention_reference(
@@ -83,6 +87,89 @@ def linear_attention_saved_reference(
     l = e.sum(dim=3)
     ctx = torch.einsum("bhdn,bhen->bhde", e / l[..., None], v.float() / n) * scale
     return ctx.reshape(b * h, d, d), torch.stack([m, l], dim=2).reshape(b * h, 2, d)
+
+
+def _fmaf(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c, as the kernel's fmaf: the product exact in fp64, one
+    rounding to fp32 after the sum."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _warp_context(
+    kf: torch.Tensor, vf: torch.Tensor, slices: list, tf32: bool
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One forward warp's online softmax over its ``slices`` ((s0, s1)
+    column ranges, in order), as the kernel's ``context_tiles`` folds them:
+    per slice the new row max m of k, e = exp(k - m), the factor f =
+    exp(m_old - m), l = fmaf(l, f, sum_c e) (summed column by column) and
+    P = fmaf(P, f, E V^T), the slice's product from 0. ``tf32``: that product
+    in split TF32, the warp's first column by an fmaf instead, so that e = 1
+    on one column gives v exactly. Returns (m, l, P), -inf, 0 and 0 for a
+    warp with no slice."""
+    b, h, d, _ = kf.shape
+    m = torch.full((b, h, d), -torch.inf)
+    l, p = torch.zeros(b, h, d), torch.zeros(b, h, d, d)
+    for i, (s0, s1) in enumerate(slices):
+        x, sv = kf[..., s0:s1], vf[..., s0:s1]
+        m_new = torch.maximum(m, x.amax(dim=3))
+        f = torch.exp(m - m_new)
+        e = torch.exp(x - m_new[..., None])
+        total = e[..., 0]
+        for c in range(1, s1 - s0):
+            total = total + e[..., c]
+        l = _fmaf(l, f, total)
+        vt = sv.transpose(-1, -2)
+        if not tf32:
+            add = e @ vt
+        elif i > 0:
+            add = split_matmul(e, vt)
+        else:
+            add = _fmaf(e[..., :1], vt[..., :1, :], split_matmul(e[..., 1:], vt[..., 1:, :]))
+        p = _fmaf(p, f[..., None], add)
+        m = m_new
+    return m, l, p
+
+
+def _merge_parts(parts: list) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Partials (m, l, P) merged in order, as the kernel's ``merge_parts``:
+    m = max_c m_c, f_c = exp(m_c - m) (0 for a partial of no columns), l and
+    P fmaf chains in c."""
+    m = torch.stack([part[0] for part in parts]).amax(dim=0)
+    l, p = torch.zeros_like(m), torch.zeros(*m.shape, m.shape[-1])
+    for mc, lc, pc in parts:
+        f = torch.where(mc == -torch.inf, 0.0, torch.exp(mc - m))
+        l = _fmaf(lc, f, l)
+        p = _fmaf(pc, f[..., None], p)
+    return m, l, p
+
+
+def linear_attention_forward_passes(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, chunk: int, tf32: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward kernel's passes in plain PyTorch: the N columns of each
+    (b, h) cut into shares of ``chunk``, one a block; a block's tiles of
+    ``FW * FWARPS`` columns from the share's start, warp w taking columns
+    ``w * FW ..`` of each, its slices folded into its own online-softmax
+    partial (``_warp_context``); the warps' partials merged in warp order,
+    the shares' in share order (``_merge_parts``), into scale*C = P (scale /
+    (l N)) and the statistics (m, l); then out = (scale C)^T softmax_d(q).
+    Returns (out, scale*C (B*h, d, d), stats (B*h, 2, d)), as ``_forward``
+    does, fp32. ``tf32``: P and out as the kernel's split-TF32 products,
+    each warp's first column by an fmaf."""
+    b, h, d, n = k.shape
+    kf, vf = k.float(), v.float()
+    shares = []
+    for start in range(0, n, chunk):
+        end = min(start + chunk, n)
+        warps = [_warp_context(kf, vf, [(c0, min(c0 + FW, end)) for c0 in range(start + w * FW, end, FW * FWARPS)],
+                               tf32) for w in range(FWARPS)]
+        shares.append(_merge_parts(warps))
+    m, l, p = _merge_parts(shares)
+    ctx = p * (scale / (l * n))[..., None]
+    s = torch.softmax(q.float(), dim=2)
+    ct = ctx.transpose(2, 3)
+    out = split_matmul(ct, s) if tf32 else ct @ s
+    return out.to(q.dtype), ctx.reshape(b * h, d, d), torch.stack([m, l], dim=2).reshape(b * h, 2, d)
 
 
 def _chain(a: torch.Tensor, b: torch.Tensor, tf32: bool = False) -> torch.Tensor:
@@ -160,11 +247,14 @@ def linear_attention_backward_passes(
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load("linear_attention")
-    for fn in (lib.la_workspace_floats, lib.la_backward_workspace_floats):
-        fn.argtypes = [ctypes.c_int, ctypes.c_int]
-        fn.restype = ctypes.c_longlong
+    lib.la_forward_route.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.la_forward_route.restype = ctypes.c_int
+    lib.la_workspace_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.la_workspace_floats.restype = ctypes.c_longlong
+    lib.la_backward_workspace_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.la_backward_workspace_floats.restype = ctypes.c_longlong
     lib.la_forward_f32.argtypes = (
-        [ctypes.c_void_p] * 7
+        [ctypes.c_void_p] * 8
         + [ctypes.c_longlong] * 3
         + [ctypes.c_int] * 3
         + [ctypes.c_float, ctypes.c_void_p]
@@ -206,10 +296,33 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"linear_attention {what} kernel launch failed with CUDA error {err}")
 
 
+_arrivals: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _arrival_counts(device: torch.device, stream: int, bh: int) -> torch.Tensor:
+    """The per-(b, h) arrival counters of the kernels' last-block merges
+    (the forward's two-launch route, the backward) for this device and
+    stream: zero before each call, and left zero by it (its last block of
+    each (b, h) resets its counter), so no call clears them; calls on one
+    stream run one after the other. Made (or grown) once."""
+    counts = _arrivals.get((device.index, stream))
+    if counts is None or counts.numel() < bh:
+        counts = _arrivals[(device.index, stream)] = torch.zeros(bh, device=device, dtype=torch.int32)
+    return counts
+
+
+def forward_route(bh: int, n: int) -> int:
+    """The forward kernel's route for B*h = bh and N = n
+    (``csrc/linear_attention.cu`` ``forward_route``): the cluster size of
+    its one-launch route, or 0 for its two launches."""
+    return _library().la_forward_route(bh, n)
+
+
 def _forward(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the forward kernel: (out, scale*C (B*h, d, d), stats (B*h, 2, d))."""
+    """Launch the forward kernel on its route (``forward_route``): (out,
+    scale*C (B*h, d, d), stats (B*h, 2, d))."""
     _check(q, k, v)
     b, h, d, n = q.shape
     lib = _library()
@@ -217,28 +330,15 @@ def _forward(
         empty = functools.partial(torch.empty, device=q.device, dtype=torch.float32)
         out, ctx, stats = empty((b, h, d, n)), empty((b * h, d, d)), empty((b * h, 2, d))
         ws = empty(lib.la_workspace_floats(b * h, n))
+        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.la_forward_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ctx.data_ptr(),
-            stats.data_ptr(), ws.data_ptr(), q.stride(0), k.stride(0), v.stride(0), b, h, n,
-            float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+            stats.data_ptr(), ws.data_ptr(), _arrival_counts(q.device, stream, b * h).data_ptr(),
+            q.stride(0), k.stride(0), v.stride(0), b, h, n, float(scale), stream,
         )
     _raise_on(err, "forward")
     linear_attention.launches += 1
     return out, ctx, stats
-
-
-_arrivals: Dict[Tuple[int, int], torch.Tensor] = {}
-
-
-def _arrival_counts(device: torch.device, stream: int, bh: int) -> torch.Tensor:
-    """The backward's per-(b, h) arrival counters for this device and
-    stream: zero before each backward, and left zero by it (its last block
-    of each (b, h) resets its counter), so no call clears them. Made (or
-    grown) once."""
-    counts = _arrivals.get((device.index, stream))
-    if counts is None or counts.numel() < bh:
-        counts = _arrivals[(device.index, stream)] = torch.zeros(bh, device=device, dtype=torch.int32)
-    return counts
 
 
 def _backward(
