@@ -75,12 +75,28 @@ Phases, each of which exits non-zero on failure:
      backward launches a step), each with a profiled step and a batch-2
      step against the CPU plain path, and TEDM head steps with
      ``--use_pallas_groupnorm``;
+ 14. the eval harness on a corpus of files: the hard synthetic corpus
+     written at 128x128 by scripts/port/export_corpus.py (JSRT 197/25/25,
+     NIH 100, Montgomery 100, CXR14 64); from its JSRT files, through
+     train.main on phase 5's backbone, a TEDM head, a PDDM probe at
+     timestep 1 and the supervised baseline at n = 1 (fp32), and the
+     baseline at n = 197 (batch 16) in fp32 and bf16, each with and without
+     ``--use_pallas_resblock --use_pallas_flash``, and in fp32 with
+     ``--use_pallas_groupnorm`` (each also one batch-2 step on the card and
+     on the CPU plain path from the same weights, at phase 6's and 10's
+     gates); testing_shared_weights on the TEDM head and run_tests on the
+     baseline and PDDM heads over JSRT_val, JSRT_test, NIH and Montgomery
+     (seconds, images/s, launches); each npz read back and its Dice
+     recomputed on the CPU; the first JSRT_val batch's probabilities of
+     each head, with noise given, against the CPU plain path;
 then one JSON line listing every kernel and the final JSON status line.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import io
 import json
 import math
 import os
@@ -125,6 +141,8 @@ BF16_STEP_LOSS_TOL = 1e-2
 BF16_STEP_GRAD_TOL = 5e-2
 OPT_IN_STEPS = 8               # backbone steps of each opt-in training run
 HEAD_STEPS = 2                 # TEDM head steps with --use_pallas_groupnorm
+EVAL_STEPS = 4                 # training steps of each phase-14 run
+EVAL_SETS = {"JSRT_val": 25, "JSRT_test": 25, "NIH": 100, "Montgomery": 100}  # images of each eval set
 GN, RB, FA = "fused_group_norm_film_silu", "fused_resnet_block", "flash_cosine_attention"
 RBB = "fused_resnet_block_backward"
 KERNELS = ("linear_attention", "linear_attention_backward", "prenorm_linear_attention", GN, RB, RBB, FA)
@@ -1313,6 +1331,204 @@ def train_head(tmp, backbone, mixed: bool, flags=(), steps: int = B_STEPS):
     return counts
 
 
+# ------------------------------------------------------------------ phase 14
+
+def export_hard_corpus(tmp) -> str:
+    """The hard corpus at the default 128x128 as files, by the port's own
+    writer (scripts/port/export_corpus.py)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "port"))
+    import export_corpus
+
+    root = os.path.join(tmp, "corpus")
+    t0 = time.perf_counter()
+    export_corpus.main(["--root", root, "--img_size", "128", "--hard", "--n_cxr", "64", "--seed", str(SEED)])
+    print(f"corpus written in {time.perf_counter() - t0:.1f} s", flush=True)
+    return root
+
+
+def corpus_run(tmp, root, name, argv, mixed=False, flags=(), backward=False):
+    """One head or baseline training run of ``EVAL_STEPS`` steps on the
+    corpus's JSRT files through train.main, with its validation at the last
+    step. Checks the steps, the validation and the launches (one UNet call a
+    step, forward and, with ``backward``, backward; one a val batch).
+    Returns the experiment directory, the launches and the median step ms."""
+    from tedm_tpu_torch.config import config_from_args
+    from tedm_tpu_torch.train import main as train_main
+
+    argv = argv + list(flags) + (["--mixed_precision"] if mixed else []) + [
+        "--data_dir", os.path.join(root, "JSRT"), "--splits_dir", os.path.join(root, "data"), "--seed", str(SEED),
+        "--max_steps", str(EVAL_STEPS), "--val_freq", str(EVAL_STEPS), "--log_freq", "1",
+        "--log_dir", os.path.join(tmp, "eval_logs", name.replace(" ", "_"))]
+    cfg = config_from_args(argv)
+    reset_launches()
+    t0 = time.perf_counter()
+    train_main(argv, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    recs = read_metrics(cfg.log_dir)
+    done = [r for r in recs if "train/loss" in r]
+    val = [r for r in recs if "val/dice" in r]
+    batch = min(cfg.batch_size, cfg.n_labelled_images)
+    step_ms = [1e3 * batch / r["train/imgs_per_sec"] for r in done]
+    median = statistics.median(step_ms[1:])
+    val_batches = math.ceil(EVAL_SETS["JSRT_val"] / cfg.batch_size)
+    per_step, per_val = per_unet_call(mixed, flags, backward=backward), per_unet_call(mixed, flags)
+    expected = {k: per_step[k] * EVAL_STEPS + per_val[k] * val_batches for k in KERNELS}
+    print(f"{name}: {len(done)} steps at batch {batch}, {wall:.1f} s wall with validation; step ms "
+          f"{[round(x, 1) for x in step_ms]}; median of steps 2-{len(done)} {median:.3f} ms = "
+          f"{1e3 * batch / median:.2f} imgs/s; losses {done[0]['train/loss']:.4f} .. {done[-1]['train/loss']:.4f}; "
+          f"val dice {[round(r['val/dice'], 4) for r in val]}; launches {({k: v for k, v in counts.items() if v})}",
+          flush=True)
+    # precision is 0/0, NaN, on an image where the head predicts no lung, as
+    # a baseline does after a few steps (the reference's metric)
+    if len(done) != EVAL_STEPS or len(val) != 1 or not all(math.isfinite(val[0][k]) for k in ("val/loss", "val/dice")):
+        fail(f"{name}: {len(done)} steps, val {val}")
+    if counts != expected:
+        fail(f"{name}: launches {counts}, expected {expected}")
+    return cfg.log_dir, counts, median
+
+
+def baseline_step_card_vs_cpu(root, mixed: bool, flags=()):
+    """One baseline training step at batch 2 (the corpus's first two JSRT
+    train images) on the card and on the CPU plain path, from the same
+    weights (initialised from the seed): the loss and every gradient."""
+    from tedm_tpu_torch.config import config_from_args
+    from tedm_tpu_torch.data.datasets import JSRTDataset
+    from tedm_tpu_torch.trainers import baseline
+    from tedm_tpu_torch.trainers.common import make_optimizer, make_train_step, to_nchw
+
+    cfg = config_from_args(["--experiment", "baseline", "--seed", str(SEED), "--log_dir",
+                            os.path.join(tempfile.gettempdir(), "unused"), *flags]
+                           + (["--mixed_precision"] if mixed else []))
+    data = JSRTDataset(os.path.join(root, "JSRT"), "JSRT_train_split.csv", cfg.img_size,
+                       splits_dir=os.path.join(root, "data"))
+    x, y = (np.stack(a) for a in zip(data[0], data[1]))
+    results = {}
+    for device in ("cuda", "cpu"):
+        task = baseline.build_task(cfg, device)
+        step = make_train_step(task, make_optimizer(cfg, task.trained.parameters()))
+        loss, _ = step(to_nchw(x, device), to_nchw(y, device), torch.ones(2, device=device))
+        results[device] = (loss.item(), {n: p.grad.cpu() for n, p in task.unet.named_parameters() if p.grad is not None})
+    (loss_g, grads_g), (loss_c, grads_c) = results["cuda"], results["cpu"]
+    label = f"{label_of(mixed, flags)}baseline"
+    if sorted(grads_g) != sorted(grads_c) or any("time_mlp" in n for n in grads_c):
+        fail(f"{label}: gradients of other parameters on the card and on the CPU")
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    grad_errs = {n: rel_err(grads_g[n], grads_c[n]) for n in grads_c}
+    worst = max(grad_errs, key=grad_errs.get)
+    loss_tol, grad_tol = (BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL) if mixed else (STEP_LOSS_TOL, STEP_GRAD_TOL)
+    print(f"{label} step at batch 2, card vs CPU plain path: loss {loss_g:.6f} vs {loss_c:.6f} (relative "
+          f"{loss_err:.2e}, tol {loss_tol}); gradients of {len(grad_errs)} tensors (no time MLP), worst relative "
+          f"to the tensor's largest entry {grad_errs[worst]:.2e} at {worst} (tol {grad_tol}), median "
+          f"{statistics.median(grad_errs.values()):.2e}", flush=True)
+    if not (math.isfinite(loss_g) and loss_err <= loss_tol and grad_errs[worst] <= grad_tol):
+        fail(f"the {label} step on the card disagrees with the CPU plain path")
+
+
+def evaluate(name, cli, exp_dir, root):
+    """One eval CLI over the four sets of the corpus: seconds, images/s and
+    launches (one UNet call a batch); each npz read back, its Dice
+    recomputed on the CPU; and the first JSRT_val batch's probabilities,
+    with noise given, on the card against the CPU plain path."""
+    from tedm_tpu_torch.eval import harness as H
+
+    class Marks(io.TextIOBase):
+        """Passes the CLI's output on and stamps the time of each "Testing
+        <set> set" line, where the CLI starts a set."""
+
+        def __init__(self):
+            self.marks = []
+
+        def write(self, text):
+            if text.startswith("Testing "):
+                self.marks.append((text.split()[1], time.perf_counter()))
+            return sys.__stdout__.write(text)
+
+    reset_launches()
+    marks = Marks()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(marks):
+        cli.main(["--experiment", exp_dir, "--nih_path", os.path.join(root, "NIH"),
+                  "--mon_path", os.path.join(root, "Montgomery")], device="cuda")
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    secs = end - t0
+    counts = read_launches()
+    batches = sum(math.ceil(n / 16) for n in EVAL_SETS.values())
+    expected = {k: v * batches for k, v in per_unet_call(False).items()}
+    images = sum(EVAL_SETS.values())
+    stamps = [t for _, t in marks.marks] + [end]
+    per_set = {key: {"seconds": b - a, "images_per_s": EVAL_SETS[key] / (b - a)}
+               for (key, a), b in zip(marks.marks, stamps[1:])}
+    by_set = ", ".join(f"{k} {v['seconds']:.3f} s = {v['images_per_s']:.1f} imgs/s" for k, v in per_set.items())
+    print(f"{name} eval: {images} images of 4 sets in {secs:.2f} s = {images / secs:.1f} imgs/s, of which the "
+          f"checkpoint load and loaders {stamps[0] - t0:.2f} s; by set (prediction, metrics, npz): {by_set}; "
+          f"launches {({k: v for k, v in counts.items() if v})}", flush=True)
+    if sorted(per_set) != sorted(EVAL_SETS):
+        fail(f"{name} eval: sets {sorted(per_set)}")
+    if counts != expected:
+        fail(f"{name} eval: launches {counts}, expected {expected}")
+    dice = {}
+    for key, n in EVAL_SETS.items():
+        out = H.load_output(os.path.join(exp_dir, f"{key}_predictions.npz"))
+        if out["y_hat"].shape != (n, 128, 128, 1) or not (np.isfinite(out["y_hat"]).all()
+                                                         and 0 <= out["y_hat"].min() and out["y_hat"].max() <= 1):
+            fail(f"{name} {key}: y_hat of shape {out['y_hat'].shape}")
+        again = H.compute_output(out["y_hat"], out["y_star"])["dice"]
+        if not np.array_equal(again, out["dice"], equal_nan=True):
+            fail(f"{name} {key}: the npz's Dice is not that of its y_hat")
+        dice[key] = float(np.nanmean(out["dice"]))
+
+    _, task = H.load_experiment(exp_dir, "cuda")
+    config, task_cpu = H.load_experiment(exp_dir, "cpu")
+    batch = next(iter(H.build_jsrt_loaders(config)["val"]))
+    rows = len(task.t_steps) * len(batch["valid"])
+    noise = [np.random.RandomState(SEED).randn(rows, 128, 128, 1).astype(np.float32)] if rows else None
+    t0 = time.perf_counter()
+    on_cpu, _ = H.predict_dataset(task_cpu, [batch], fold=task.fold, noise=noise)
+    cpu_s = time.perf_counter() - t0
+    on_card, _ = H.predict_dataset(task, [batch], fold=task.fold, noise=noise)
+    err = float(np.abs(on_card - on_cpu).max())
+    print(f"{name}: mean Dice {dice}; first JSRT_val batch ({len(batch['valid'])} images) card vs CPU plain path: "
+          f"max_abs_err {err:.3e} (tol {PATH_TOL}); CPU {cpu_s:.1f} s", flush=True)
+    if not err <= PATH_TOL:
+        fail(f"{name}: the card and the CPU plain path disagree on the first JSRT_val batch: {err}")
+    return counts, {"seconds": secs, "images": images, "images_per_s": images / secs, "per_set": per_set,
+                    "dice": dice, "first_batch_max_abs_err": err}
+
+
+def eval_harness(tmp, backbone):
+    """Phase 14. Returns the runs' launches by path and the measurements."""
+    from tedm_tpu_torch.eval import run_tests, testing_shared_weights
+
+    root = export_hard_corpus(tmp)
+    runs, report = [], {}
+    head = ["--saved_diffusion_model", backbone, "--n_labelled_images", "1"]
+    tedm, counts, report["TEDM step ms"] = corpus_run(tmp, root, "TEDM head", ["--experiment", "TEDM"] + head)
+    runs.append(("TEDM head (corpus)", counts))
+    pddm, counts, report["PDDM step ms"] = corpus_run(
+        tmp, root, "PDDM probe", ["--experiment", "PDDM", "--t_steps_to_save", "1"] + head)
+    runs.append(("PDDM probe training", counts))
+    base, counts, report["baseline n=1 step ms"] = corpus_run(
+        tmp, root, "baseline n=1", ["--experiment", "baseline", "--n_labelled_images", "1"], backward=True)
+    runs.append(("baseline training n=1", counts))
+    for mixed in (False, True):
+        for flags in ((), ("--use_pallas_resblock", "--use_pallas_flash"), ("--use_pallas_groupnorm",)):
+            if mixed and flags == ("--use_pallas_groupnorm",):
+                continue
+            label = f"{label_of(mixed, flags)}baseline"
+            _, counts, report[f"{label} step ms (batch 16)"] = corpus_run(
+                tmp, root, label, ["--experiment", "baseline", "--n_labelled_images", "197"], mixed, flags, backward=True)
+            runs.append((f"{label} training", counts))
+            baseline_step_card_vs_cpu(root, mixed, flags)
+    for name, cli, exp_dir in (("TEDM", testing_shared_weights, tedm), ("baseline", run_tests, base),
+                               ("PDDM", run_tests, pddm)):
+        counts, report[f"{name} eval"] = evaluate(name, cli, exp_dir, root)
+        runs.append((f"{name} eval", counts))
+    return runs, report
+
+
 def add_paths(*runs) -> dict:
     """Each kernel's launches summed over the named runs of its main path:
     {kernel: {path: launches}}, paths with no launch left out."""
@@ -1396,10 +1612,12 @@ def main() -> None:
                 step_card_vs_cpu(mixed, flags)
             opt_in.append(("--use_pallas_groupnorm training (b)",
                            train_head(tmp, backbone, False, ("--use_pallas_groupnorm",), HEAD_STEPS)))
+        with Phase("14. eval harness, baseline and PDDM on a corpus of files"):
+            evals, eval_report = eval_harness(tmp, backbone)
 
     paths = add_paths(("serving", served["launches"]), ("training (a)", a32), ("training (b)", b32),
                       ("bf16 serving", served16["launches"]), ("bf16 training (a)", a16),
-                      ("bf16 training (b)", b16), *opt_in)
+                      ("bf16 training (b)", b16), *opt_in, *evals)
     bounded = lambda rows: "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations"
     gn_req = [(s, torch.float32, f) for s, f in gn_calls(8)]
     rb_req = [(s, torch.float32) for s in rb_shapes(8)]
@@ -1506,7 +1724,7 @@ def main() -> None:
     for kern in kernels:
         if kern["launches"] == 0:
             fail(f"{kern['name']} was never launched on the main path")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "phase_14": eval_report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

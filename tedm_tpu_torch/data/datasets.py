@@ -1,15 +1,145 @@
-"""The deterministic synthetic chest X-ray corpus (own copy of
-``SyntheticCXRDataset`` in ``tedm_tpu/data/datasets.py``).
+"""Dataset readers (host side, numpy, NHWC): the port's own copy of
+``tedm_tpu/data/datasets.py``.
 
-Samples are NHWC numpy, bit-equal to the JAX package's for the same
-(split, seed, index, size), so both packages train on the same corpus. The
-readers of the real JSRT / CXR14 / NIH / Montgomery images depend on the JAX
-package's native resampler and split CSVs; they are ROADMAP item A.5.
+Each dataset returns ``(img, mask)`` float32 NHWC arrays in [0, 1] (mask
+binary), or just ``img`` for the unlabelled CXR14 corpus, with the
+preprocessing of the reference:
+
+* JSRT       - reference: dataloaders/JSRT.py:49-94. CSV cols: path, id;
+               masks at SCR/masks/{right lung,left lung}/<id>.gif,
+               binarised > 0.5 and summed (an overlap re-binarises).
+* CXR14      - reference: dataloaders/CXR14.py:49-74. CSV col: 'Image Index';
+               image only.
+* NIH        - reference: dataloaders/NIH.py:14-50. CSV cols: scan, mask.
+* Montgomery - reference: dataloaders/Montgomery.py:15-61. CSV cols: scan
+               and the per-lung mask columns 'right lung', 'left lung'.
+* Synthetic  - the deterministic pseudo-CXR generator, bit-equal to the JAX
+               package's for the same (split, seed, index, size), so both
+               packages train on the same corpus.
+
+Images are decoded and resized by PIL, the JAX package's own path where its
+native resampler is not built (and byte-exact with it). The split CSVs in
+``splits/`` are copies of the JAX package's, read with the ``csv`` module:
+every value stays the string the file holds (JSRT ids such as ``JPCLN001``).
 """
 
 from __future__ import annotations
 
+import csv
+import os
+from typing import Dict, List, Sequence, Tuple
+
 import numpy as np
+
+SPLITS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "splits")
+
+
+def read_rows(splits_dir: str, csv_name: str) -> List[Dict[str, str]]:
+    """The rows of a split CSV, each a dict of column -> string."""
+    with open(os.path.join(splits_dir, csv_name), newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def _load_pil_image(path: str, img_size: int) -> np.ndarray:
+    """PIL ``convert('L').resize((s, s))`` then ToTensor semantics (/255), as
+    (H, W, 1) float32 (reference: dataloaders/JSRT.py:62-65)."""
+    from PIL import Image
+
+    with Image.open(path) as img:
+        arr8 = np.asarray(img.convert("L").resize((img_size, img_size)), dtype=np.uint8)
+    return arr8.astype(np.float32)[..., None] / 255.0
+
+
+def _load_mask(paths: Sequence[str], img_size: int) -> np.ndarray:
+    """Binarise each mask at > 0.5 and sum; where the lungs overlap,
+    re-binarise (reference: dataloaders/JSRT.py:67-88)."""
+    masks = [(_load_pil_image(p, img_size) > 0.5).astype(np.float32) for p in paths]
+    m = np.sum(masks, axis=0)
+    if (m > 1).sum() > 0:
+        m = (m > 0.5).astype(np.float32)
+    return m
+
+
+class JSRTDataset:
+    def __init__(
+        self,
+        base_path: str,
+        csv_name: str,
+        img_size: int = 128,
+        labels: Sequence[str] = ("right lung", "left lung"),
+        splits_dir: str = SPLITS_DIR,
+    ):
+        self.rows = read_rows(splits_dir, csv_name)
+        self.base_path = base_path
+        self.labels = list(labels)
+        self.img_size = img_size
+        self.has_labels = True
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    def __getitem__(self, index: int) -> Tuple[np.ndarray, np.ndarray]:
+        row = self.rows[index]
+        img = _load_pil_image(os.path.join(self.base_path, row["path"]), self.img_size)
+        mask_paths = [os.path.join(self.base_path, "SCR", "masks", lab, row["id"] + ".gif") for lab in self.labels]
+        return img, _load_mask(mask_paths, self.img_size)
+
+
+class CXR14Dataset:
+    """The unlabelled DDPM corpus. The reference's val/test quirk (all three
+    loaders read train_split.csv, dataloaders/CXR14.py:30-32) is kept in
+    ``build_dataloaders``."""
+
+    def __init__(self, data_path: str, csv_name: str = "train_split.csv",
+                 img_size: int = 128, splits_dir: str = SPLITS_DIR):
+        self.rows = read_rows(splits_dir, csv_name)
+        self.data_path = data_path
+        self.img_size = img_size
+        self.has_labels = False
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    def __getitem__(self, index: int) -> np.ndarray:
+        return _load_pil_image(os.path.join(self.data_path, self.rows[index]["Image Index"]), self.img_size)
+
+
+class NIHDataset:
+    def __init__(self, base_path: str, csv_name: str = "correspondence_with_chestXray8.csv",
+                 img_size: int = 128, splits_dir: str = SPLITS_DIR):
+        self.rows = read_rows(splits_dir, csv_name)
+        self.base_path = base_path
+        self.img_size = img_size
+        self.has_labels = True
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    def __getitem__(self, index: int) -> Tuple[np.ndarray, np.ndarray]:
+        row = self.rows[index]
+        img = _load_pil_image(os.path.join(self.base_path, row["scan"]), self.img_size)
+        mask = (_load_pil_image(os.path.join(self.base_path, row["mask"]), self.img_size) > 0.5).astype(np.float32)
+        return img, mask
+
+
+class MonDataset:
+    def __init__(self, base_path: str, csv_name: str, img_size: int = 128,
+                 labels: Sequence[str] = ("right lung", "left lung"),
+                 splits_dir: str = SPLITS_DIR):
+        self.rows = read_rows(splits_dir, csv_name)
+        self.base_path = base_path
+        self.labels = list(labels)
+        self.img_size = img_size
+        self.has_labels = True
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    def __getitem__(self, index: int) -> Tuple[np.ndarray, np.ndarray]:
+        row = self.rows[index]
+        img = _load_pil_image(os.path.join(self.base_path, row["scan"]), self.img_size)
+        mask_paths = [os.path.join(self.base_path, row[lab]) for lab in self.labels]
+        return img, _load_mask(mask_paths, self.img_size)
 
 
 class SyntheticCXRDataset:

@@ -168,19 +168,23 @@ def build_dataloaders(
     shard_index: int = 0,
     shard_count: int = 1,
     synthetic: bool = False,
+    splits_dir: Optional[str] = None,
 ) -> Dict[str, Loader]:
-    """Train, val and test loaders of ``dataset`` (JSRT or CXR14) with the
-    JAX package's split sizes on the synthetic corpus (``synthetic``, or no
-    ``data_dir``). Train is shuffled and sharded; val and test are neither.
-    The JSRT train subset is its first ``n_labelled_images`` rows
-    (reference: dataloaders/JSRT.py:29-31)."""
-    from tedm_tpu_torch.data.datasets import SyntheticCXRDataset
+    """Train, val and test loaders of ``dataset`` (JSRT or CXR14), read from
+    ``data_dir`` with the split CSVs of ``splits_dir`` (the port's copies by
+    default), or from the synthetic corpus with the same split sizes
+    (``synthetic``, or no ``data_dir``). Train is shuffled and sharded; val
+    and test are neither. The JSRT train subset is its first
+    ``n_labelled_images`` rows (reference: dataloaders/JSRT.py:29-31)."""
+    from tedm_tpu_torch.data.datasets import (
+        SPLITS_DIR,
+        CXR14Dataset,
+        JSRTDataset,
+        SyntheticCXRDataset,
+    )
 
-    if not (synthetic or data_dir is None):
-        raise NotImplementedError(
-            "the port reads the synthetic corpus only (--synthetic_data): the "
-            "JSRT and CXR14 image readers are ROADMAP item A.5"
-        )
+    synthetic = synthetic or data_dir is None
+    sdir = splits_dir or SPLITS_DIR
 
     def mk(ds, shuffle, shard, subset=None):
         return Loader(
@@ -191,8 +195,12 @@ def build_dataloaders(
         )
 
     if dataset == "JSRT":
-        splits = {name: SyntheticCXRDataset(name, n, img_size, labelled=True, seed=seed)
-                  for name, n in (("train", 197), ("val", 25), ("test", 25))}
+        if synthetic:
+            splits = {name: SyntheticCXRDataset(name, n, img_size, labelled=True, seed=seed)
+                      for name, n in (("train", 197), ("val", 25), ("test", 25))}
+        else:
+            splits = {name: JSRTDataset(data_dir, f"JSRT_{name}_split.csv", img_size, splits_dir=sdir)
+                      for name in ("train", "val", "test")}
         return {
             "train": mk(splits["train"], True, True, subset=n_labelled_images),
             "val": mk(splits["val"], False, False),
@@ -200,8 +208,11 @@ def build_dataloaders(
         }
     if dataset == "CXR14":
         # the reference's val and test read train_split.csv too
-        # (dataloaders/CXR14.py:30-32); the synthetic corpus mirrors that
-        corpus = SyntheticCXRDataset("cxr_train", 2048, img_size, labelled=False, seed=seed)
-        return {"train": mk(corpus, True, True), "val": mk(corpus, False, False),
-                "test": mk(corpus, False, False)}
+        # (dataloaders/CXR14.py:30-32)
+        if synthetic:
+            train = val = SyntheticCXRDataset("cxr_train", 2048, img_size, labelled=False, seed=seed)
+        else:
+            train = CXR14Dataset(data_dir, "train_split.csv", img_size, splits_dir=sdir)
+            val = CXR14Dataset(data_dir, "train_split.csv", img_size, splits_dir=sdir)
+        return {"train": mk(train, True, True), "val": mk(val, False, False), "test": mk(val, False, False)}
     raise ValueError(f"unknown dataset {dataset}")

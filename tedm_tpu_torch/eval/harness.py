@@ -1,40 +1,69 @@
-"""Restore an experiment for evaluation or serving (port of
-``load_experiment`` and ``build_eval_task`` in ``tedm_tpu/eval/harness.py``).
+"""Evaluation plumbing for ``run_tests`` and ``testing_shared_weights`` (port
+of ``tedm_tpu/eval/harness.py``; reference: auxiliary/postprocessing/run_tests.py).
 
-An experiment directory holds ``best/state.pt`` and ``best/config.json``;
-the state carries the ``backbone`` and ``classifier`` state_dicts. The
-dataset loops and metrics of the eval harness wait for a later slice.
+* Restore an experiment: ``<dir>/best/state.pt`` with ``config.json``
+  beside it; the task is rebuilt from the embedded ``config.experiment``
+  (the baseline, the LEDM/LEDMe/TEDM heads, PDDM; the reference's aliases
+  ``datasetDM`` and ``simple_datasetDM`` too, run_tests.py:63-70) and each of
+  its modules loads the state_dict under its key.
+* The four test sets: JSRT val and test (the split CSVs), NIH and
+  Montgomery, or their synthetic stand-ins (run_tests.py:83-91).
+* Sigmoid predictions per set (step-major over the timesteps of a folded
+  head), per-image Dice, precision and recall, and ``.npz`` files with the
+  JAX package's keys.
+
+The conditional chain (``load_diffusion_experiment``,
+``make_conditional_sampler``, ``predict_conditional_dataset``) is ROADMAP
+item A.5e; ``eval_parallel_setup`` is not ported: evaluation runs on one
+device (A.5h).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Tuple, Union
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from tedm_tpu_torch.config import Config
-from tedm_tpu_torch.trainers.datasetdm import SegTask, build_task
+from tedm_tpu_torch.data.datasets import MonDataset, NIHDataset, SyntheticCXRDataset
+from tedm_tpu_torch.data.pipeline import Loader, build_dataloaders
+from tedm_tpu_torch.ops import metrics as M
+from tedm_tpu_torch.trainers.common import to_nchw
 from tedm_tpu_torch.utils.checkpoint import checkpoint_exists, load_checkpoint, load_config
 from tedm_tpu_torch.utils.device import resolve_device
 
+DATASET_KEYS = ("JSRT_val", "JSRT_test", "NIH", "Montgomery")
 DATASETDM_EXPERIMENTS = ("LEDM", "LEDMe", "TEDM", "datasetDM")
+PDDM_EXPERIMENTS = ("PDDM", "simple_datasetDM")
 
 
-def build_eval_task(config: Config, device: Union[str, torch.device] = "cuda") -> SegTask:
-    """Experiment name -> task (reference model pick, run_tests.py:63-70)."""
-    if config.experiment in DATASETDM_EXPERIMENTS:
+def build_eval_task(config: Config, device: Union[str, torch.device] = "cuda"):
+    """Experiment name -> task on ``device`` (reference model pick,
+    run_tests.py:63-70). PDDM skips its standardisation pre-pass: the
+    checkpoint's statistics overwrite it."""
+    exp = config.experiment
+    if exp == "baseline":
+        from tedm_tpu_torch.trainers.baseline import build_task
+
         return build_task(config, device)
-    raise NotImplementedError(
-        f"experiment {config.experiment!r} is not ported yet: the port serves "
-        f"{', '.join(DATASETDM_EXPERIMENTS[:3])}; the baseline, contrastive and "
-        "PDDM heads are ROADMAP item A.5"
-    )
+    if exp in DATASETDM_EXPERIMENTS:
+        from tedm_tpu_torch.trainers.datasetdm import build_task
+
+        return build_task(config, device)
+    if exp in PDDM_EXPERIMENTS:
+        from tedm_tpu_torch.trainers.per_step import build_task
+
+        return build_task(config, device, compute_stats=False)
+    if exp in ("global_finetune", "glob_loc_finetune"):
+        raise NotImplementedError(
+            f"experiment {exp!r} is not ported yet: the contrastive finetunes are ROADMAP item A.5d"
+        )
+    raise ValueError(f"Experiment {exp} not recognized")
 
 
-def load_experiment(
-    exp_dir: str, device: Union[str, torch.device] = "cuda"
-) -> Tuple[Config, SegTask]:
+def load_experiment(exp_dir: str, device: Union[str, torch.device] = "cuda") -> Tuple[Config, Any]:
     """Restore (config, task) from an experiment directory, on ``device``."""
     dev = resolve_device(device)
     if not os.path.isdir(exp_dir):
@@ -45,6 +74,115 @@ def load_experiment(
     config = load_config(ckpt)
     task = build_eval_task(config, dev)
     state, _ = load_checkpoint(ckpt, config, map_location=dev)
-    task.unet.load_state_dict(state["backbone"])
-    task.classifier.load_state_dict(state["classifier"])
+    for name, module in task.modules.items():
+        module.load_state_dict(state[name])
     return config, task
+
+
+def build_jsrt_loaders(config: Config) -> Dict[str, Loader]:
+    return build_dataloaders(
+        "JSRT", config.data_dir, config.img_size, config.batch_size,
+        config.num_workers, config.n_labelled_images, seed=config.seed,
+        synthetic=config.synthetic_data, splits_dir=config.splits_dir,
+    )
+
+
+def build_test_loaders(
+    config: Config,
+    nih_path: Optional[str] = None,
+    mon_path: Optional[str] = None,
+    mon_csv: str = "patient_data.csv",
+) -> Dict[str, Loader]:
+    """The four eval sets (reference: run_tests.py:83-91). With synthetic
+    data (or a path missing) NIH and Montgomery are synthetic stand-ins of
+    the reference sizes, 100 each."""
+    jsrt = build_jsrt_loaders(config)
+    mk = lambda ds: Loader(ds, config.batch_size, num_workers=config.num_workers)
+    out = {"JSRT_val": jsrt["val"], "JSRT_test": jsrt["test"]}
+    sdir = config.splits_dir
+    if config.synthetic_data or nih_path is None:
+        out["NIH"] = mk(SyntheticCXRDataset("nih", 100, config.img_size, seed=config.seed))
+    else:
+        nih_kw = {"splits_dir": sdir} if sdir else {}
+        out["NIH"] = mk(NIHDataset(nih_path, img_size=config.img_size, **nih_kw))
+    if config.synthetic_data or mon_path is None:
+        out["Montgomery"] = mk(SyntheticCXRDataset("montgomery", 100, config.img_size, seed=config.seed))
+    else:
+        # Montgomery's CSV ships with its images (the reference's MONPATH is
+        # also its csv path, run_tests.py:88-90) unless splits_dir overrides it
+        out["Montgomery"] = mk(MonDataset(mon_path, mon_csv, img_size=config.img_size,
+                                          splits_dir=sdir or mon_path))
+    return out
+
+
+def make_predict_fn(task) -> Callable[..., torch.Tensor]:
+    """``fwd(x, generator=None, noise=None)``: sigmoid probabilities of an
+    NCHW batch, (fold*B, C, H, W) fp32, without autograd. Noise as in
+    ``extract_features``."""
+
+    @torch.inference_mode()
+    def fwd(x: torch.Tensor, generator: Optional[torch.Generator] = None,
+            noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return torch.sigmoid(task.apply(x, generator=generator, noise=noise).float())
+
+    return fwd
+
+
+def predict_dataset(
+    task,
+    loader,
+    generator: Optional[torch.Generator] = None,
+    fold: int = 1,
+    fwd: Optional[Callable[..., torch.Tensor]] = None,
+    noise: Optional[Iterable[np.ndarray]] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Sigmoid predictions over a loader: (y_hat, y_star), NHWC numpy, the
+    padding rows dropped; y_hat is (fold, N, H, W, C), step-major, when
+    fold > 1. The feature noise comes from ``generator``, or from ``noise``:
+    one NHWC array a batch (B rows, or S*B step-major)."""
+    dev = next(task.trained.parameters()).device
+    fwd = fwd or make_predict_fn(task)
+    noise = None if noise is None else iter(noise)
+    y_hats, y_stars = [], []
+    for batch in loader:
+        n = None if noise is None else to_nchw(next(noise), dev)
+        pred = fwd(to_nchw(batch["image"], dev), generator, n).permute(0, 2, 3, 1).cpu().numpy()
+        nvalid = int(batch["valid"].sum())
+        b = len(batch["valid"])
+        pred = pred.reshape(fold, b, *pred.shape[1:])[:, :nvalid] if fold > 1 else pred[:nvalid]
+        y_hats.append(pred)
+        y_stars.append(batch["mask"][:nvalid])
+    return np.concatenate(y_hats, axis=1 if fold > 1 else 0), np.concatenate(y_stars, axis=0)
+
+
+def compute_output(y_hat: np.ndarray, y_star: np.ndarray) -> Dict[str, np.ndarray]:
+    """The saved artifact (reference: run_tests.py:150-156): NHWC y_hat and
+    y_star, and per-image (N, C) Dice, precision and recall of y_hat > 0.5."""
+    nchw = lambda a: torch.from_numpy(np.ascontiguousarray(np.moveaxis(a, -1, 1)))
+    pred, target = nchw(y_hat > 0.5), nchw(y_star)
+    return {
+        "y_hat": y_hat,
+        "y_star": y_star,
+        "dice": M.dice(pred, target).numpy(),
+        "precision": M.precision(pred, target).numpy(),
+        "recall": M.recall(pred, target).numpy(),
+    }
+
+
+def print_metrics(name: str, output: Dict[str, np.ndarray]) -> None:
+    """The reference's formatting (run_tests.py:157-159)."""
+    print(f"{name} metrics: \n\tdice:      "
+          f"{np.nanmean(output['dice']):.3}+/-{np.nanstd(output['dice']):.3}")
+    print(f"\tprecision: {np.nanmean(output['precision']):.3}"
+          f"+/-{np.nanstd(output['precision']):.3}")
+    print(f"\trecall:    {np.nanmean(output['recall']):.3}"
+          f"+/-{np.nanstd(output['recall']):.3}")
+
+
+def save_output(path: str, output: Dict[str, np.ndarray]) -> None:
+    np.savez_compressed(path, **output)
+
+
+def load_output(path: str) -> Dict[str, np.ndarray]:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}

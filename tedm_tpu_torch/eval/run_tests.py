@@ -1,0 +1,105 @@
+"""Batch evaluation (port of ``tedm_tpu/eval/run_tests.py``; reference:
+auxiliary/postprocessing/run_tests.py).
+
+    python -m tedm_tpu_torch.eval.run_tests --experiment <logdir>/<n>/<ts> [--rerun]
+        [--nih_path DIR] [--mon_path DIR]
+
+Evaluates the checkpointed model on the card over JSRT_val, JSRT_test, NIH
+and Montgomery, writes ``{dataset}_predictions.npz`` (keys: y_hat, y_star,
+dice, precision, recall) into the experiment directory, prints mean+/-std
+metrics, and skips the sets already evaluated unless ``--rerun``
+(run_tests.py:40-49,107-113). For a folded (TEDM) head the prediction is
+the sigmoid averaged over timesteps (``testing_shared_weights`` keeps the
+per-timestep ones). The feature noise comes from a generator seeded with
+``config.seed + 777``. The conditional experiment's sampling chain is
+ROADMAP item A.5e.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Dict, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from tedm_tpu_torch.eval.harness import (
+    DATASET_KEYS,
+    build_test_loaders,
+    compute_output,
+    load_experiment,
+    load_output,
+    make_predict_fn,
+    predict_dataset,
+    print_metrics,
+    save_output,
+)
+from tedm_tpu_torch.utils.checkpoint import load_config
+from tedm_tpu_torch.utils.device import resolve_device, strict_fp32
+
+
+def evaluate_experiment(
+    exp_dir: str,
+    rerun: bool = False,
+    nih_path: Optional[str] = None,
+    mon_path: Optional[str] = None,
+    device: Union[str, torch.device] = "cuda",
+) -> Dict[str, Dict[str, np.ndarray]]:
+    """Evaluate ``exp_dir`` on ``device``; returns {dataset key: output}."""
+    files = set(os.listdir(exp_dir))
+    results = {}
+    if {f"{k}_predictions.npz" for k in DATASET_KEYS} <= files and not rerun:
+        print("Experiment already tested")
+        for key in DATASET_KEYS:
+            out = load_output(os.path.join(exp_dir, f"{key}_predictions.npz"))
+            print_metrics(key, out)
+            results[key] = out
+        return results
+
+    if load_config(os.path.join(exp_dir, "best")).experiment == "conditional":
+        raise NotImplementedError(
+            "evaluating the conditional experiment is not ported yet: its sampling chain is ROADMAP item A.5e"
+        )
+    dev = resolve_device(device)
+    config, task = load_experiment(exp_dir, dev)
+    fwd = make_predict_fn(task)
+    loaders = build_test_loaders(config, nih_path, mon_path)
+    generator = torch.Generator(device=dev).manual_seed(config.seed + 777)
+
+    for key, loader in loaders.items():
+        path = os.path.join(exp_dir, f"{key}_predictions.npz")
+        if os.path.exists(path) and not rerun:
+            print(f"{key} already tested")
+            out = load_output(path)
+            print_metrics(key, out)
+            results[key] = out
+            continue
+        print(f"Testing {key} set")
+        y_hat, y_star = predict_dataset(task, loader, generator, fold=task.fold, fwd=fwd)
+        if task.fold > 1:
+            y_hat = y_hat.mean(axis=0)  # ensemble over timesteps (app.py:79)
+        out = compute_output(y_hat, y_star)
+        print_metrics(key, out)
+        save_output(path, out)
+        results[key] = out
+    return results
+
+
+def main(argv: Optional[Sequence[str]] = None, device: Union[str, torch.device] = "cuda") -> None:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--experiment", "-e", type=str, required=True, help="Experiment path")
+    parser.add_argument("--rerun", "-r", default=False, action="store_true", help="Run the test again")
+    parser.add_argument("--nih_path", type=str, default=None)
+    parser.add_argument("--mon_path", type=str, default=None)
+    args = parser.parse_args(argv)
+    if os.path.isdir(args.experiment):
+        print("Experiment path identified as a directory")
+    else:
+        raise ValueError("Experiment path is not a directory")
+    strict_fp32()
+    evaluate_experiment(args.experiment, args.rerun, args.nih_path, args.mon_path, device)
+
+
+if __name__ == "__main__":
+    main()

@@ -8,12 +8,14 @@ into the batch, step-major, so one UNet call serves them all. The classifier
 is the datasetDM 1x1-conv MLP [->128, ReLU, BN, ->32, ReLU, BN, ->1] whose
 layer 1 runs per stage at native resolution and is then nearest-upsampled and
 summed, which equals the conv over the upsampled concatenation and never
-builds that (B, S*960, 128, 128) tensor.
+builds that (B, S*960, 128, 128) tensor. ``LinearProbe`` is PDDM's head, one
+1x1 conv over the same S*960 channels, computed the same way.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import math
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -144,3 +146,86 @@ def flax_batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
         bn.num_batches_tracked += 1
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     return ((xf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]).to(x.dtype)
+
+
+def _step_stage(feats: List[torch.Tensor], n_steps: int):
+    """(stage index, the stage's fp32 rows of one step) in [step x stage]
+    order, the order of the heads' input channels."""
+    b = feats[0].shape[0] // n_steps
+    for s in range(n_steps):
+        for i, f in enumerate(feats):
+            yield i, f[s * b:(s + 1) * b].float()
+
+
+class LinearProbe(nn.Module):
+    """PDDM's probe: one 1x1 conv over all S*960 feature channels, with
+    optional standardisation (f - mean) / std by the ``mean`` and ``std``
+    buffers, which the trainer's pre-pass fills (the port of
+    ``LinearProbe`` in ``tedm_tpu/models/segmentation.py``; reference:
+    trainers/datasetDM_per_step.py:17-32, which computed the standardised
+    features and then discarded them). ``weight`` is (out, S*960, 1, 1) with
+    torch's Conv2d init (uniform, variance 1/(3 fan_in)), ``bias`` zeros, as
+    the JAX package initialises them. In fp32 on features of any dtype."""
+
+    def __init__(
+        self,
+        stage_channels: Sequence[int] = (512, 256, 128, 64),
+        n_steps: int = 1,
+        out_channels: int = 1,
+        img_size: int = 128,
+        standardize: bool = False,
+    ):
+        super().__init__()
+        c_in = sum(stage_channels) * n_steps
+        self.weight = nn.Parameter(torch.empty(out_channels, c_in, 1, 1))
+        nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.register_buffer("mean", torch.zeros(c_in))
+        self.register_buffer("std", torch.ones(c_in))
+        self.stage_channels = tuple(stage_channels)
+        self.n_steps = n_steps
+        self.img_size = img_size
+        self.standardize = standardize
+
+    def forward(self, feats: List[torch.Tensor]) -> torch.Tensor:
+        """feats: the 4 stage maps, each (n_steps*B, c_s, h_s, w_s) -> fp32
+        logits (B, out_channels, img_size, img_size)."""
+        acc = None
+        off = 0
+        for i, f_s in _step_stage(feats, self.n_steps):
+            c = self.stage_channels[i]
+            if self.standardize:
+                f_s = (f_s - self.mean[off:off + c, None, None]) / self.std[off:off + c, None, None]
+            y = nearest_resize(F.conv2d(f_s, self.weight[:, off:off + c]), self.img_size, self.img_size)
+            acc = y if acc is None else acc + y
+            off += c
+        return acc + self.bias[None, :, None, None]
+
+
+def masked_feature_sums(
+    feats: List[torch.Tensor], n_steps: int, valid: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-channel (sum, sum of squares, count) over the valid rows and
+    space, in the [step x stage x channel] order: the pieces of the probe's
+    standardisation pre-pass that leave out the loader's padding rows
+    (port of ``masked_feature_sums``; reference pre-pass:
+    datasetDM_per_step.py:104-113)."""
+    w = valid.float().reshape(-1, 1, 1, 1)
+    sums, sqs, cnts = [], [], []
+    for _, f_s in _step_stage(feats, n_steps):
+        sums.append((f_s * w).sum(dim=(0, 2, 3)))
+        sqs.append((f_s.square() * w).sum(dim=(0, 2, 3)))
+        cnt = valid.float().sum() * f_s.shape[2] * f_s.shape[3]
+        cnts.append(cnt.expand(f_s.shape[1]))
+    return torch.cat(sums), torch.cat(sqs), torch.cat(cnts)
+
+
+def feature_moments(feats: List[torch.Tensor], n_steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel mean and (biased) std over (batch, space), in the [step x
+    stage x channel] order (port of ``feature_moments``)."""
+    means, stds = [], []
+    for _, f_s in _step_stage(feats, n_steps):
+        var, mean = torch.var_mean(f_s, dim=(0, 2, 3), correction=0)
+        means.append(mean)
+        stds.append(var.sqrt())
+    return torch.cat(means), torch.cat(stds)

@@ -1,10 +1,13 @@
 """Headless segmentation serving (port of ``tedm_tpu/serve/app.py``).
 
-``Predictor`` serves LEDM, LEDMe and TEDM models from
-``<logs_root>/<folder>/<size>/best`` checkpoints: load a CXR, predict the
-lung mask, optionally post-process (keep the two largest connected
-components and draw their boundary, reference app.py:97-110). Models are
-cached after their first load. Images go in and masks come out as NHWC
+``Predictor`` serves the Baseline, LEDM, LEDMe, TEDM and PDDM models from
+``<logs_root>/<folder>/<size>/best`` checkpoints (the folders of
+``MODEL_FOLDERS``; PDDM is the port's addition), restored by the eval
+harness's ``load_experiment``: load a CXR, predict the lung mask, optionally
+post-process (keep the two largest connected components and draw their
+boundary, reference app.py:97-110). Models are cached after their first
+load. The contrastive models (Global CL, Global & Local CL) are ROADMAP
+item A.5d. Images go in and masks come out as NHWC
 numpy, as in the JAX package. The gradio UI and the grid composer wait for
 a later slice.
 """
@@ -12,14 +15,14 @@ a later slice.
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from tedm_tpu_torch.config import Config
 from tedm_tpu_torch.eval.harness import load_experiment
-from tedm_tpu_torch.trainers.datasetdm import SegTask
+from tedm_tpu_torch.trainers.common import to_nchw
 from tedm_tpu_torch.utils.device import resolve_device
 
 IMG_SIZE = 128
@@ -31,6 +34,7 @@ MODEL_FOLDERS = {
     "LEDM": "LEDM",
     "LEDMe": "LEDMe",
     "TEDM": "TEDM",
+    "PDDM": "PDDM",
 }
 
 # the JAX predictor draws its noise from PRNGKey(0) on every request; the
@@ -73,9 +77,9 @@ class Predictor:
     def __init__(self, logs_root: str = "logs", device: Union[str, torch.device] = "cuda"):
         self.logs_root = logs_root
         self.device = resolve_device(device)
-        self._cache: Dict[str, Tuple[Config, SegTask]] = {}
+        self._cache: Dict[str, Tuple[Config, Any]] = {}
 
-    def _load(self, ckpt_dir: str) -> Tuple[Config, SegTask]:
+    def _load(self, ckpt_dir: str) -> Tuple[Config, Any]:
         if ckpt_dir not in self._cache:
             self._cache[ckpt_dir] = load_experiment(ckpt_dir, self.device)
         return self._cache[ckpt_dir]
@@ -101,12 +105,12 @@ class Predictor:
         if img.shape[1] != config.img_size:
             # serve any input size against any checkpoint resolution
             img = load_img(img[0, :, :, 0], config.img_size)
-        x = torch.from_numpy(np.ascontiguousarray(img, np.float32)).permute(0, 3, 1, 2).to(self.device)
+        x = to_nchw(img, self.device)
         gen = None
         if noise is None:
             gen = torch.Generator(device=self.device).manual_seed(NOISE_SEED)
         else:
-            noise = torch.from_numpy(np.ascontiguousarray(noise, np.float32)).permute(0, 3, 1, 2)
+            noise = to_nchw(noise, self.device)
         with torch.inference_mode():
             probs = torch.sigmoid(task.apply(x, generator=gen, noise=noise).float())
             probs = probs.reshape(task.fold, -1, *probs.shape[1:]).mean(dim=0)

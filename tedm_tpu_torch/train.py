@@ -1,7 +1,8 @@
 """Experiment dispatcher (port of ``tedm_tpu/train.py``; reference: train.py:15-56).
 
     python -m tedm_tpu_torch.train --experiment {img_only,joint,conditional,
-        joint_and_cond,LEDM,LEDMe,TEDM} --synthetic_data [...]
+        joint_and_cond,baseline,LEDM,LEDMe,TEDM,PDDM} [--synthetic_data |
+        --data_dir DIR [--splits_dir DIR]] [...]
 
 The flags are the JAX package's (``tedm_tpu_torch.config.build_parser``).
 Training runs on the card; ``main(argv, device="cpu")`` runs the plain
@@ -16,34 +17,40 @@ from typing import Callable, Dict, Optional, Sequence, Union
 import torch
 
 from tedm_tpu_torch.config import Config, config_from_args
+from tedm_tpu_torch.utils.device import strict_fp32
 
 DIFFUSION_EXPERIMENTS = ("img_only", "joint", "conditional", "joint_and_cond")
 HEAD_EXPERIMENTS = ("LEDM", "LEDMe", "TEDM")
+CONTRASTIVE_EXPERIMENTS = ("global_cl", "local_cl", "global_finetune", "glob_loc_finetune")
 
 # (flag, is it set, the ROADMAP item that ports its feature)
 NOT_PORTED = (
-    ("--remat", lambda c: c.remat, "A.5"),
-    ("--profile_dir", lambda c: c.profile_dir is not None, "A.5"),
-    ("--multihost", lambda c: c.multihost, "A.5"),
-    ("--mesh_shape", lambda c: bool(c.mesh_shape), "A.5"),
-    ("--param_sharding", lambda c: c.param_sharding != "replicated", "A.5"),
-    ("--shard_spatial", lambda c: c.shard_spatial, "A.5"),
-    ("--data_backend", lambda c: c.data_backend != "threads", "A.5"),
+    ("--remat", lambda c: c.remat, "A.5g"),
+    ("--profile_dir", lambda c: c.profile_dir is not None, "A.5g"),
+    ("--multihost", lambda c: c.multihost, "A.5h"),
+    ("--mesh_shape", lambda c: bool(c.mesh_shape), "A.5h"),
+    ("--param_sharding", lambda c: c.param_sharding != "replicated", "A.5h"),
+    ("--shard_spatial", lambda c: c.shard_spatial, "A.5h"),
+    ("--data_backend", lambda c: c.data_backend != "threads", "A.5h"),
 )
 
 
 def dispatch(config: Config, device: Union[str, torch.device] = "cuda") -> None:
-    from tedm_tpu_torch.trainers import datasetdm, diffusion
+    from tedm_tpu_torch.trainers import baseline, datasetdm, diffusion, per_step
 
     mains: Dict[str, Callable[..., None]] = {
         **{e: diffusion.main for e in DIFFUSION_EXPERIMENTS},
         **{e: datasetdm.main for e in HEAD_EXPERIMENTS},
+        "baseline": baseline.main,
+        "PDDM": per_step.main,
     }
-    if config.experiment not in mains:
+    if config.experiment in CONTRASTIVE_EXPERIMENTS:
         raise NotImplementedError(
-            f"experiment {config.experiment!r} is not ported yet: the baseline, PDDM "
-            "and contrastive trainers are ROADMAP item A.5"
+            f"experiment {config.experiment!r} is not ported yet: the contrastive "
+            "trainers are ROADMAP item A.5d"
         )
+    if config.experiment not in mains:
+        raise ValueError(f"unknown experiment {config.experiment}")
     if config.grad_accum > 1 and config.experiment not in DIFFUSION_EXPERIMENTS:
         # the heads use BatchNorm, whose batch statistics over a microbatch
         # differ from those over the batch: accumulation would not be exact
@@ -60,13 +67,7 @@ def dispatch(config: Config, device: Union[str, torch.device] = "cuda") -> None:
 
 
 def main(argv: Optional[Sequence[str]] = None, device: Union[str, torch.device] = "cuda") -> None:
-    # fp32 means fp32: no TF32 in cuDNN convolutions (on by default) or in
-    # matrix products, as the tolerances against the JAX package assume; and
-    # a bf16 product sums in fp32, with no bf16 split-K reduction (on by
-    # default), as JAX's preferred_element_type=float32 does
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    strict_fp32()
     dispatch(config_from_args(argv), device)
 
 

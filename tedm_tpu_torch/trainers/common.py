@@ -11,17 +11,25 @@ stop at 1.5 times the best val loss; ``debug`` runs one step of everything.
 Padding rows of the static-shape batches are masked out of every mean and
 come out of the metrics as NaN.
 
-One step is a forward and backward of the head, the backbone frozen under
-``torch.no_grad``, and one Adam (AdamW under ``--weight_decay``) step. Its
-feature noise comes from a ``torch.Generator`` on the device, seeded from
-``config.seed``, or is given. ``freeze_mask`` of the JAX package serves
-only the contrastive finetune (ROADMAP A.5) and is not ported.
+A task names what the loop trains (``tedm_tpu/trainers/common.py``'s
+``SegTask``): ``apply(x, generator=None, noise=None)`` maps an image batch to
+logits, ``fold`` * B rows of them, step-major; ``t_steps`` names the folded
+timesteps; ``modules`` maps a checkpoint key to each module whose
+state_dict the checkpoint holds; ``trained`` is the one of them the optimizer
+updates, in train mode for a step and in eval mode for validation. The
+diffusion-feature heads (``trainers/datasetdm.py``, ``trainers/per_step.py``)
+train their head on a frozen backbone, under ``torch.no_grad``; the baseline
+(``trainers/baseline.py``) trains the whole UNet. One step is a forward and
+backward and one Adam (AdamW under ``--weight_decay``) step. Feature noise
+comes from a ``torch.Generator`` on the device, seeded from ``config.seed``,
+or is given. ``freeze_mask`` of the JAX package serves only the contrastive
+finetune (ROADMAP A.5d) and is not ported.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, Iterable, List, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Tuple, Union
 
 import numpy as np
 import torch
@@ -58,9 +66,14 @@ def unet_kernels(config: Config) -> Dict[str, bool]:
                 flash_attention=config.use_pallas_flash)
 
 
-def to_nchw(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """An NHWC numpy batch as a contiguous NCHW float32 tensor on ``device``."""
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32).transpose(0, 3, 1, 2))).to(device)
+def to_nchw(a: np.ndarray, device: Union[str, torch.device]) -> torch.Tensor:
+    """An NHWC numpy batch as a contiguous NCHW float32 tensor on ``device``.
+    The layout is made on the host, with NCHW's own strides: at C = 1 a
+    transposed NHWC array keeps a channel stride of 1, which torch reads as
+    channels-last, so cuDNN would run every convolution channels-last and
+    the kernels, which take NCHW activations, would refuse the input."""
+    x = torch.from_numpy(np.asarray(a, np.float32)).permute(0, 3, 1, 2)
+    return x.clone(memory_format=torch.contiguous_format).to(device)
 
 
 def make_optimizer(config: Config, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
@@ -90,14 +103,14 @@ def _fold(task, y: torch.Tensor, valid: torch.Tensor) -> Tuple[torch.Tensor, tor
 
 
 def make_train_step(task, optimizer: torch.optim.Optimizer):
-    """One training step of ``task``'s head: ``step(x, y, valid,
+    """One training step of ``task``'s trained module: ``step(x, y, valid,
     generator=None, noise=None) -> (loss, per_fold)``, device scalars; the
     noise is as in ``SegTask.apply``. ``per_fold`` is the masked mean loss
     of each folded timestep (TEDM per-timestep logging, reference:
     train_baseline.py:56-58,70-73)."""
 
     def step(x, y, valid, generator=None, noise=None):
-        task.classifier.train()
+        task.trained.train()
         logits = task.apply(x, generator=generator, noise=noise)
         per_img, loss = masked_bce_per_image(logits, *_fold(task, y, valid))
         optimizer.zero_grad(set_to_none=True)
@@ -117,7 +130,7 @@ def make_eval_step(task):
 
     @torch.no_grad()
     def step(x, y, valid, generator):
-        task.classifier.eval()
+        task.trained.eval()
         logits = task.apply(x, generator=generator)
         y, valid = _fold(task, y, valid)
         _, loss = masked_bce_per_image(logits, y, valid)
@@ -131,7 +144,7 @@ def make_eval_step(task):
 def validate(config: Config, task, loader, generator: torch.Generator) -> Dict[str, float]:
     """Reference validate (trainers/train_baseline.py:99-144): the loss
     weighted by valid rows, the metrics by nanmean over images."""
-    dev = next(task.classifier.parameters()).device
+    dev = next(task.trained.parameters()).device
     eval_step = make_eval_step(task)
     losses, weights, dices, precs, recs = [], [], [], [], []
     for i, batch in enumerate(loader):
@@ -156,17 +169,18 @@ def validate(config: Config, task, loader, generator: torch.Generator) -> Dict[s
 
 
 def train_segmentation(config: Config, task, loaders: Dict[str, Any], logger: MetricsLogger) -> None:
-    """The shared loop over ``task`` (a ``SegTask``: frozen backbone, trained
-    head) on the head's device. Checkpoints hold ``{"backbone",
-    "classifier", "opt_state", "step"}``; ``--resume_path`` restores them."""
-    dev = next(task.classifier.parameters()).device
-    optimizer = make_optimizer(config, task.classifier.parameters())
+    """The shared loop over ``task`` on its trained module's device.
+    Checkpoints hold the state_dict of each of ``task.modules`` under its key
+    (a head's ``{"backbone", "classifier"}``, the baseline's ``{"unet"}``),
+    ``opt_state`` and ``step``; ``--resume_path`` restores them."""
+    dev = next(task.trained.parameters()).device
+    optimizer = make_optimizer(config, task.trained.parameters())
     train_step = make_train_step(task, optimizer)
     step = 0
     if config.resume_path and checkpoint_exists(config.resume_path):
         state, _ = load_checkpoint(config.resume_path, config, map_location=dev)
-        task.unet.load_state_dict(state["backbone"])
-        task.classifier.load_state_dict(state["classifier"])
+        for name, module in task.modules.items():
+            module.load_state_dict(state[name])
         optimizer.load_state_dict(state["opt_state"])
         step = int(state["step"])
         print(f"Resumed from {config.resume_path} at step {step}")
@@ -178,7 +192,7 @@ def train_segmentation(config: Config, task, loaders: Dict[str, Any], logger: Me
     t0, imgs_seen = time.time(), 0
 
     def make_state():
-        return {"backbone": task.unet.state_dict(), "classifier": task.classifier.state_dict(),
+        return {**{name: m.state_dict() for name, m in task.modules.items()},
                 "opt_state": optimizer.state_dict(), "step": step}
 
     with graceful_shutdown() as should_stop:

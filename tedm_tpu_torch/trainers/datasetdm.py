@@ -14,7 +14,7 @@ only the head's parameters are in the optimizer (:46).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -62,15 +62,26 @@ def load_backbone(
 
 @dataclass
 class SegTask:
-    """A frozen backbone and its head. ``apply`` maps an image batch to
-    logits; for a folded head (TEDM) they have ``fold`` * B rows, step-major."""
+    """A frozen backbone and its head (a ``PixelClassifier``, or PDDM's
+    ``LinearProbe``), the task ``trainers/common.py`` trains: the head is
+    ``trained``, and the checkpoint holds ``backbone`` and ``classifier``.
+    ``apply`` maps an image batch to logits; for a folded head (TEDM) they
+    have ``fold`` * B rows, step-major."""
 
     unet: Unet
-    classifier: PixelClassifier
+    classifier: torch.nn.Module
     sched: DiffusionSchedule
     t_steps: Tuple[int, ...]
     normalize: bool
     fold: int = 1
+
+    @property
+    def modules(self) -> Dict[str, torch.nn.Module]:
+        return {"backbone": self.unet, "classifier": self.classifier}
+
+    @property
+    def trained(self) -> torch.nn.Module:
+        return self.classifier
 
     def apply(
         self,
@@ -125,7 +136,7 @@ def main(config: Config, device: Union[str, torch.device] = "cuda") -> None:
     loaders = build_dataloaders(
         "JSRT", config.data_dir, config.img_size, config.batch_size,
         config.num_workers, config.n_labelled_images, seed=config.seed,
-        synthetic=config.synthetic_data,
+        synthetic=config.synthetic_data, splits_dir=config.splits_dir,
     )
     logger = MetricsLogger(config.log_dir, config, enabled=not config.debug)
     train_segmentation(config, task, loaders, logger)

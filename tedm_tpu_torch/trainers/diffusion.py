@@ -239,7 +239,7 @@ def main(config: Config, device: Union[str, torch.device] = "cuda") -> None:
     # the JSRT modes need masks (reference: train_base_diffusion.py:26-32)
     loaders = build_dataloaders(
         "CXR14" if config.experiment == "img_only" else "JSRT", config.data_dir, config.img_size, config.batch_size, config.num_workers,
-        seed=config.seed, synthetic=config.synthetic_data,
+        seed=config.seed, synthetic=config.synthetic_data, splits_dir=config.splits_dir,
     )
     logger = MetricsLogger(config.log_dir, config, enabled=not config.debug)
     steps = make_steps(config, unet, sched, optimizer, ema)

@@ -3,12 +3,15 @@
 Turns ``tedm_tpu`` parameter trees, given as nested dicts of numpy arrays,
 into ``state_dict``s of the port's modules: the inverse of
 ``convert_unet_state_dict``, ``convert_classifier_state_dict`` and
-``classifier_batch_stats`` in ``tedm_tpu/utils/torch_port.py``. Pure numpy;
-the results load with ``load_numpy_state_dict``.
+``classifier_batch_stats`` in ``tedm_tpu/utils/torch_port.py``, and PDDM's
+``LinearProbe``. ``task_state_dicts`` turns a JAX task's parameters into the
+state_dicts a port checkpoint holds. Pure numpy; the results load with
+``load_numpy_state_dict``.
 
 Layout transforms (JAX -> torch):
   Conv kernel   (kh, kw, in, out) -> (out, in, kh, kw)
   Dense kernel  (in, out)         -> (out, in)
+  Probe kernel  (c_in, out)       -> (out, c_in, 1, 1)
   ChanLayerNorm g (C,)            -> (1, C, 1, 1)
   GroupNorm scale/bias            -> weight/bias
   BatchNorm scale/bias, mean/var  -> weight/bias, running_mean/running_var
@@ -120,6 +123,31 @@ def classifier_state_dict(
         sd[f"{idx}.running_var"] = _vec(batch_stats[name]["var"])
         sd[f"{idx}.num_batches_tracked"] = np.array(0, np.int64)
     return sd
+
+
+def probe_state_dict(params: Mapping[str, Any], stats: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """``tedm_tpu.models.segmentation.LinearProbe`` params and stats -> the
+    port's ``LinearProbe`` state_dict."""
+    w = np.asarray(params["kernel"], np.float32)  # (c_in, out)
+    return {"weight": np.ascontiguousarray(w.T[:, :, None, None]), "bias": _vec(params["bias"]),
+            "mean": _vec(stats["mean"]), "std": _vec(stats["std"])}
+
+
+def task_state_dicts(
+    experiment: str, params: Mapping[str, Any], batch_stats: Mapping[str, Any]
+) -> Dict[str, Dict[str, np.ndarray]]:
+    """The ``params`` and ``batch_stats`` of a JAX task
+    (``tedm_tpu/trainers/{baseline,datasetdm,per_step}.py`` ``build_task``)
+    -> the state_dicts of the port's checkpoint of ``experiment``, by key:
+    ``{"unet"}`` for the baseline, ``{"backbone", "classifier"}`` for the
+    heads."""
+    if experiment == "baseline":
+        return {"unet": unet_state_dict(params)}
+    backbone = unet_state_dict(batch_stats["backbone"])
+    if experiment == "PDDM":
+        return {"backbone": backbone, "classifier": probe_state_dict(params, batch_stats["stats"])}
+    return {"backbone": backbone,
+            "classifier": classifier_state_dict(params, batch_stats["bn"], shared=experiment == "TEDM")}
 
 
 def load_numpy_state_dict(module: nn.Module, sd: Mapping[str, np.ndarray]) -> nn.Module:

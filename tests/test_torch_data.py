@@ -13,6 +13,7 @@ from tedm_tpu.data.pipeline import build_dataloaders as jax_build_dataloaders
 from tedm_tpu_torch.config import config_from_args
 from tedm_tpu_torch.data.datasets import SyntheticCXRDataset
 from tedm_tpu_torch.data.pipeline import Loader, build_dataloaders
+from tedm_tpu_torch.train import main as train_main
 
 
 @pytest.mark.parametrize("hard", [False, True])
@@ -51,7 +52,7 @@ def test_loader_batches_equal_jax(kw):
                 np.testing.assert_array_equal(a[k], b[k])
 
 
-def test_build_dataloaders_matches_jax_and_refuses_real_data():
+def test_build_dataloaders_matches_jax_and_refuses_real_data(tmp_path):
     kw = dict(img_size=16, batch_size=4, num_workers=1, n_labelled_images=3, seed=2, synthetic=True)
     ours, theirs = build_dataloaders("JSRT", None, **kw), jax_build_dataloaders("JSRT", None, **kw)
     for split in ("train", "val", "test"):
@@ -59,8 +60,8 @@ def test_build_dataloaders_matches_jax_and_refuses_real_data():
         np.testing.assert_array_equal(next(iter(ours[split]))["image"], next(iter(theirs[split]))["image"])
     cxr = build_dataloaders("CXR14", None, img_size=16, batch_size=4, num_workers=1)
     assert not cxr["train"].has_labels and len(cxr["val"]) == 512
-    with pytest.raises(NotImplementedError, match="A.5"):
-        build_dataloaders("JSRT", "/data/jsrt", img_size=16)
+    with pytest.raises(NotImplementedError, match="--data_backend .*A.5h"):  # the grain and device backends
+        train_main(["--data_backend", "grain", "--synthetic_data", "--log_dir", str(tmp_path / "r")], device="cpu")
 
 
 @pytest.mark.parametrize(

@@ -100,7 +100,13 @@ def test_entry_points_refuse_cpu_without_cuda(monkeypatch, tmp_path):
 
 def test_unported_experiment_names_its_roadmap_item(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_eval_task(_config(tmp_path, "baseline"), device="cpu")
+        build_eval_task(_config(tmp_path, "global_finetune"), device="cpu")
+
+
+@pytest.mark.parametrize("model", ["Step_1", "../TEDM"])
+def test_predictor_refuses_a_model_outside_its_folders(model, tmp_path):
+    with pytest.raises(KeyError):
+        Predictor(logs_root=str(tmp_path), device="cpu").predict(np.zeros((1, 8, 8, 1), np.float32), model, 1)
 
 
 def test_load_img_and_postprocess_match_jax():
@@ -123,6 +129,8 @@ def _imports(path):
 
 def test_port_imports_no_jax_and_nothing_of_tedm_tpu():
     files = [os.path.join(REPO, "chip_smoke.py")]
+    port_scripts = os.path.join(REPO, "scripts", "port")
+    files += [os.path.join(port_scripts, n) for n in os.listdir(port_scripts) if n.endswith(".py")]
     for root, _, names in os.walk(os.path.join(REPO, "tedm_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10

@@ -200,8 +200,8 @@ def test_main_trains_validates_resumes_and_feeds_the_backbone(tmp_path):
 @pytest.mark.parametrize(
     "extra,exc,match",
     [
-        (["--experiment", "baseline"], NotImplementedError, "A.5"),
-        (["--experiment", "PDDM"], NotImplementedError, "A.5"),
+        (["--experiment", "global_finetune"], NotImplementedError, "A.5d"),
+        (["--experiment", "local_cl"], NotImplementedError, "A.5d"),
         (["--experiment", "TEDM", "--grad_accum", "2"], ValueError, "grad_accum"),
         (["--remat"], NotImplementedError, "--remat .*A.5"),
         (["--profile_dir", "p"], NotImplementedError, "--profile_dir .*A.5"),
