@@ -25,7 +25,10 @@ Phases, each of which exits non-zero on failure:
      torch.profiler);
      the GroupNorm+FiLM+SiLU, ResnetBlock and flash cosine-attention
      kernels vs plain at every call shape of the default UNet at batch 8
-     and 16, in fp32 and bf16, and at edges, each with its controls (the
+     and 16, in fp32 and bf16 (and the linear attention, GroupNorm,
+     ResnetBlock and its backward and flash kernels at the batch-32 fp32
+     shapes of a contrastive step, two views of 16, without FiLM), and at
+     edges, each with its controls (the
      GroupNorm's edges on both of its routes, its cluster route one launch
      a call, each launch timed apart at (8, 64, 128^2) and (8, 512, 16^2));
      device times (CUDA events) beside each kernel's bound; each launch of
@@ -89,6 +92,23 @@ Phases, each of which exits non-zero on failure:
      (seconds, images/s, launches); each npz read back and its Dice
      recomputed on the CPU; the first JSRT_val batch's probabilities of
      each head, with noise given, against the CPU plain path;
+ 15. the contrastive arms through train.main: global_cl on synthetic CXR14
+     (batch 16, 32 views, fp32; 4 linear-attention forward and 4 backward
+     launches a step) and local_cl warm-started from it (6 forward, 2
+     backward: only ups[:2] trains), each with a validation of 2 batches and
+     a batch-2 step on the card and on the CPU plain path from the same
+     weights and views; on the corpus's JSRT files (n = 197, batch 16,
+     frozen encoder until step 3, augmented) glob_loc_finetune in fp32 and
+     bf16 and global_finetune in fp32, bf16 and fp32 with resblock + flash, each
+     with a frozen batch-2 step against the CPU; run_tests on the
+     glob_loc_finetune run over the four sets; one Predictor("Global & Local
+     CL") request against the CPU plain path;
+ 16. a conditional backbone through train.main on the corpus's JSRT files
+     (batch 16, one validation with its sample grid), run_tests on it with
+     --ddim_steps 10 over the four sets (5 trajectories a batch, 8
+     linear-attention launches a UNet call), and one DDIM and one
+     DPM-Solver++(2M) trajectory of one image on the card against the CPU
+     plain path from the same x_T;
 then one JSON line listing every kernel and the final JSON status line.
 """
 
@@ -125,6 +145,7 @@ STEP_LOSS_TOL = 1e-4           # card vs CPU training step, relative loss
 STEP_GRAD_TOL = 1e-3           # ... and gradients, relative to each tensor's largest entry
 SERVE_SHAPES = [(8, 4, 32, n) for n in (256, 1024, 4096, 16384)]   # 2 calls each per request
 TRAIN_SHAPES = [(16, 4, 32, n) for n in (256, 1024, 4096, 16384)]  # 2 calls each per step
+CL_SHAPES = [(32, 4, 32, n) for n in (256, 1024, 4096, 16384)]     # a CL step: two views of 16
 A_STEPS = 20                   # training steps of path (a)
 B_STEPS = 15                   # training steps of path (b)
 BLOCK_TOL = 5e-2               # bf16 forward tolerance (KERNELS.json), absolute
@@ -143,6 +164,15 @@ OPT_IN_STEPS = 8               # backbone steps of each opt-in training run
 HEAD_STEPS = 2                 # TEDM head steps with --use_pallas_groupnorm
 EVAL_STEPS = 4                 # training steps of each phase-14 run
 EVAL_SETS = {"JSRT_val": 25, "JSRT_test": 25, "NIH": 100, "Montgomery": 100}  # images of each eval set
+CL_STEPS = 4                   # steps of each phase-15 pretraining run (batch 16, 32 views)
+CL_VAL_BATCHES = 2             # --max_val_steps of the pretraining runs
+COND_STEPS = 4                 # conditional backbone steps of phase 16
+DDIM_STEPS = 10                # --ddim_steps of phase 16's eval
+EVAL_RUNS = 5                  # trajectories a batch in the conditional eval (run_tests.py:121-137)
+# one 10-step trajectory on the card against the CPU plain path, absolute on
+# the sample in [-1, 1]: measured on an H100 7.2e-7 (DDIM) and 1.4e-6
+# (DPM++(2M)); the gate is 70x the larger
+SAMPLER_TOL = 1e-4
 GN, RB, FA = "fused_group_norm_film_silu", "fused_resnet_block", "flash_cosine_attention"
 RBB = "fused_resnet_block_backward"
 KERNELS = ("linear_attention", "linear_attention_backward", "prenorm_linear_attention", GN, RB, RBB, FA)
@@ -329,7 +359,7 @@ def check_forward(la, gen, scale):
     from tedm_tpu_torch.kernels.bounds import bound
 
     rows = {}
-    for shape in SERVE_SHAPES + TRAIN_SHAPES:
+    for shape in SERVE_SHAPES + TRAIN_SHAPES + CL_SHAPES:
         n = shape[-1]
         q = torch.randn(shape, generator=gen, device="cuda") * 2
         k = torch.randn(shape, generator=gen, device="cuda") * 2
@@ -392,7 +422,7 @@ def check_backward(la, gen, scale):
 
     rows = {}
     cases = [(s, *(torch.randn(s, generator=gen, device="cuda") * 2 for _ in range(2)),
-              torch.randn(s, generator=gen, device="cuda") * s[-1]) for s in TRAIN_SHAPES]
+              torch.randn(s, generator=gen, device="cuda") * s[-1]) for s in TRAIN_SHAPES + CL_SHAPES]
     for i, (what, q, k, v) in enumerate(cases + list(edge_inputs(gen))):
         g = torch.randn(q.shape, generator=gen, device="cuda")
         if what == "qkv views":  # a gradient with a batch stride of its own
@@ -636,7 +666,9 @@ def check_groupnorm(gn, gen):
     rows = {}
     with torch.no_grad():
         for dtype in (torch.float32, torch.bfloat16):
-            for shape, film in dict.fromkeys(gn_calls(8) + gn_calls(16)):
+            # a CL step (batch 32, fp32) runs without FiLM: no time embedding
+            cl = [(s, False) for s, _ in gn_calls(32)] if dtype == torch.float32 else []
+            for shape, film in dict.fromkeys(gn_calls(8) + gn_calls(16) + cl):
                 args = gn_inputs(gen, shape, dtype, film)
                 err, control = gn_check(gn, args, (shape, dtype, film))
                 b, c, h, w = shape
@@ -792,6 +824,18 @@ def check_resblock(rb, gen):
                       f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms flag-off block "
                       f"{row['default_ms']:.4f} ms bound {1e3 * row['bound_ms']:.2f} us ({row['bound_by']})", flush=True)
                 del args
+            for shape in dict.fromkeys(rb_shapes(32)) if dtype == torch.float32 else ():
+                # a CL step: batch 32, fp32, no FiLM; held and timed, the kernel alone
+                args = rb_inputs(gen, shape, dtype, film=False)
+                err, control = rb_check(rb, args, (shape, dtype, "no FiLM"))
+                b, cin, cout, h, w = shape
+                rows[(shape, dtype)] = row = {
+                    "shape": list(shape), "dtype": dtype_name(dtype), "film": False, "max_abs_err": err,
+                    "min_control_err": control, "ms": device_ms(lambda: rb.fused_resnet_block(*args)),
+                    **bound(*resblock_call(b, cin, cout, h * w, args[0].element_size()))}
+                print(f"fused_resnet_block {shape} fp32 no FiLM: max_abs_err {err:.3e} (controls >= {control:.3f}) "
+                      f"kernel {row['ms']:.4f} ms bound {1e3 * row['bound_ms']:.2f} us ({row['bound_by']})", flush=True)
+                del args
             edges = [((1, 64, 64, 1, 1), True), ((3, 16, 24, 1, 17), True), ((1, 32, 16, 15, 17), True),
                      ((3, 16, 16, 8, 12), True), ((1, 64, 64, 8, 12), False), ((2, 24, 16, 8, 12), False)]
             for shape, film in edges:
@@ -861,6 +905,8 @@ def check_resblock_backward(rb, gen):
         for dtype in (torch.float32, torch.bfloat16):
             tol = RB_BWD_TOL[dtype]
             cases = [(s, True) for s in dict.fromkeys(rb_shapes(16))]
+            if dtype == torch.float32:  # a CL step: batch 32, no FiLM
+                cases += [(s, False) for s in dict.fromkeys(rb_shapes(32))]
             cases += [((1, 64, 64, 1, 1), True), ((3, 16, 24, 1, 17), True), ((1, 32, 16, 15, 17), True),
                       ((3, 16, 16, 8, 12), False), ((2, 24, 16, 8, 12), False)]
             for shape, film in cases:
@@ -940,7 +986,7 @@ def check_flash(fa, gen):
     rows, per_launch = {}, {}
     with torch.no_grad():
         for dtype in (torch.float32, torch.bfloat16):
-            for b, n in [(8, 256), (16, 256), (8, 1024), (8, 4096), (2, 1), (3, 17), (1, 255)]:
+            for b, n in [(8, 256), (16, 256), (32, 256), (8, 1024), (8, 4096), (2, 1), (3, 17), (1, 255)]:
                 q, k, v = fa_inputs(gen, b, n, dtype)
                 # at N = 1 the output is v whatever the norms: no control can read there
                 controls = {"norms over d": fa.cosine_attention_reference(q, k, v, 16.0, norm_dim=2)} if n > 1 else {}
@@ -1389,41 +1435,89 @@ def corpus_run(tmp, root, name, argv, mixed=False, flags=(), backward=False):
     return cfg.log_dir, counts, median
 
 
-def baseline_step_card_vs_cpu(root, mixed: bool, flags=()):
+def baseline_step_card_vs_cpu(root, mixed: bool, flags=(), argv=()):
     """One baseline training step at batch 2 (the corpus's first two JSRT
     train images) on the card and on the CPU plain path, from the same
-    weights (initialised from the seed): the loss and every gradient."""
+    weights (initialised from the seed): the loss and every gradient. With
+    ``argv`` naming a contrastive finetune and its CL checkpoint, the UNet is
+    warm-started from it and the step is a frozen one: the frozen
+    parameters' gradients are 0 and their values stay."""
     from tedm_tpu_torch.config import config_from_args
     from tedm_tpu_torch.data.datasets import JSRTDataset
-    from tedm_tpu_torch.trainers import baseline
+    from tedm_tpu_torch.trainers import baseline, contrastive
     from tedm_tpu_torch.trainers.common import make_optimizer, make_train_step, to_nchw
 
     cfg = config_from_args(["--experiment", "baseline", "--seed", str(SEED), "--log_dir",
-                            os.path.join(tempfile.gettempdir(), "unused"), *flags]
+                            os.path.join(tempfile.gettempdir(), "unused"), *flags, *argv]
                            + (["--mixed_precision"] if mixed else []))
+    finetune = cfg.experiment != "baseline"
     data = JSRTDataset(os.path.join(root, "JSRT"), "JSRT_train_split.csv", cfg.img_size,
                        splits_dir=os.path.join(root, "data"))
     x, y = (np.stack(a) for a in zip(data[0], data[1]))
     results = {}
     for device in ("cuda", "cpu"):
-        task = baseline.build_task(cfg, device)
-        step = make_train_step(task, make_optimizer(cfg, task.trained.parameters()))
-        loss, _ = step(to_nchw(x, device), to_nchw(y, device), torch.ones(2, device=device))
+        task = (contrastive.build_task if finetune else baseline.build_task)(cfg, device)
+        frozen = contrastive.frozen_parameters(task) if finetune else []
+        kept = [p.detach().clone() for p in frozen]
+        step = make_train_step(task, make_optimizer(cfg, task.trained.parameters()), frozen)
+        loss, _ = step(to_nchw(x, device), to_nchw(y, device), torch.ones(2, device=device), freeze=finetune)
+        if not all(torch.equal(p, k) for p, k in zip(frozen, kept)):
+            fail(f"{cfg.experiment}: a frozen parameter moved on the {device}")
         results[device] = (loss.item(), {n: p.grad.cpu() for n, p in task.unet.named_parameters() if p.grad is not None})
     (loss_g, grads_g), (loss_c, grads_c) = results["cuda"], results["cpu"]
-    label = f"{label_of(mixed, flags)}baseline"
+    label = f"{label_of(mixed, flags)}{cfg.experiment}"
     if sorted(grads_g) != sorted(grads_c) or any("time_mlp" in n for n in grads_c):
         fail(f"{label}: gradients of other parameters on the card and on the CPU")
     loss_err = abs(loss_g - loss_c) / abs(loss_c)
     grad_errs = {n: rel_err(grads_g[n], grads_c[n]) for n in grads_c}
     worst = max(grad_errs, key=grad_errs.get)
     loss_tol, grad_tol = (BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL) if mixed else (STEP_LOSS_TOL, STEP_GRAD_TOL)
-    print(f"{label} step at batch 2, card vs CPU plain path: loss {loss_g:.6f} vs {loss_c:.6f} (relative "
-          f"{loss_err:.2e}, tol {loss_tol}); gradients of {len(grad_errs)} tensors (no time MLP), worst relative "
-          f"to the tensor's largest entry {grad_errs[worst]:.2e} at {worst} (tol {grad_tol}), median "
-          f"{statistics.median(grad_errs.values()):.2e}", flush=True)
+    print(f"{label} step at batch 2{' (frozen: the encoder and mid get 0)' if finetune else ''}, card vs CPU "
+          f"plain path: loss {loss_g:.6f} vs {loss_c:.6f} (relative {loss_err:.2e}, tol {loss_tol}); gradients of "
+          f"{len(grad_errs)} tensors (no time MLP), worst relative to the tensor's largest entry "
+          f"{grad_errs[worst]:.2e} at {worst} (tol {grad_tol}), median {statistics.median(grad_errs.values()):.2e}",
+          flush=True)
     if not (math.isfinite(loss_g) and loss_err <= loss_tol and grad_errs[worst] <= grad_tol):
         fail(f"the {label} step on the card disagrees with the CPU plain path")
+    return {"loss_rel_err": loss_err, "worst_grad_rel_err": grad_errs[worst]}
+
+
+class Marks(io.TextIOBase):
+    """Passes an eval CLI's output on and stamps the time of each "Testing
+    <set> set" line, where the CLI starts a set."""
+
+    def __init__(self):
+        self.marks = []
+
+    def write(self, text):
+        if text.startswith("Testing "):
+            self.marks.append((text.split()[1], time.perf_counter()))
+        return sys.__stdout__.write(text)
+
+
+def per_set_times(marks, end) -> dict:
+    """Seconds and images/s of each set, from one "Testing" stamp to the next."""
+    stamps = [t for _, t in marks.marks] + [end]
+    return {key: {"seconds": b - a, "images_per_s": EVAL_SETS[key] / (b - a)}
+            for (key, a), b in zip(marks.marks, stamps[1:])}
+
+
+def check_npz(name, exp_dir) -> dict:
+    """Each set's npz read back: y_hat of the set's size in [0, 1], its Dice
+    recomputed on the CPU. Returns the mean Dice of each set."""
+    from tedm_tpu_torch.eval import harness as H
+
+    dice = {}
+    for key, n in EVAL_SETS.items():
+        out = H.load_output(os.path.join(exp_dir, f"{key}_predictions.npz"))
+        if out["y_hat"].shape != (n, 128, 128, 1) or not (np.isfinite(out["y_hat"]).all()
+                                                         and 0 <= out["y_hat"].min() and out["y_hat"].max() <= 1):
+            fail(f"{name} {key}: y_hat of shape {out['y_hat'].shape}")
+        again = H.compute_output(out["y_hat"], out["y_star"])["dice"]
+        if not np.array_equal(again, out["dice"], equal_nan=True):
+            fail(f"{name} {key}: the npz's Dice is not that of its y_hat")
+        dice[key] = float(np.nanmean(out["dice"]))
+    return dice
 
 
 def evaluate(name, cli, exp_dir, root):
@@ -1432,18 +1526,6 @@ def evaluate(name, cli, exp_dir, root):
     recomputed on the CPU; and the first JSRT_val batch's probabilities,
     with noise given, on the card against the CPU plain path."""
     from tedm_tpu_torch.eval import harness as H
-
-    class Marks(io.TextIOBase):
-        """Passes the CLI's output on and stamps the time of each "Testing
-        <set> set" line, where the CLI starts a set."""
-
-        def __init__(self):
-            self.marks = []
-
-        def write(self, text):
-            if text.startswith("Testing "):
-                self.marks.append((text.split()[1], time.perf_counter()))
-            return sys.__stdout__.write(text)
 
     reset_launches()
     marks = Marks()
@@ -1458,27 +1540,16 @@ def evaluate(name, cli, exp_dir, root):
     batches = sum(math.ceil(n / 16) for n in EVAL_SETS.values())
     expected = {k: v * batches for k, v in per_unet_call(False).items()}
     images = sum(EVAL_SETS.values())
-    stamps = [t for _, t in marks.marks] + [end]
-    per_set = {key: {"seconds": b - a, "images_per_s": EVAL_SETS[key] / (b - a)}
-               for (key, a), b in zip(marks.marks, stamps[1:])}
+    per_set = per_set_times(marks, end)
     by_set = ", ".join(f"{k} {v['seconds']:.3f} s = {v['images_per_s']:.1f} imgs/s" for k, v in per_set.items())
     print(f"{name} eval: {images} images of 4 sets in {secs:.2f} s = {images / secs:.1f} imgs/s, of which the "
-          f"checkpoint load and loaders {stamps[0] - t0:.2f} s; by set (prediction, metrics, npz): {by_set}; "
+          f"checkpoint load and loaders {marks.marks[0][1] - t0:.2f} s; by set (prediction, metrics, npz): {by_set}; "
           f"launches {({k: v for k, v in counts.items() if v})}", flush=True)
     if sorted(per_set) != sorted(EVAL_SETS):
         fail(f"{name} eval: sets {sorted(per_set)}")
     if counts != expected:
         fail(f"{name} eval: launches {counts}, expected {expected}")
-    dice = {}
-    for key, n in EVAL_SETS.items():
-        out = H.load_output(os.path.join(exp_dir, f"{key}_predictions.npz"))
-        if out["y_hat"].shape != (n, 128, 128, 1) or not (np.isfinite(out["y_hat"]).all()
-                                                         and 0 <= out["y_hat"].min() and out["y_hat"].max() <= 1):
-            fail(f"{name} {key}: y_hat of shape {out['y_hat'].shape}")
-        again = H.compute_output(out["y_hat"], out["y_star"])["dice"]
-        if not np.array_equal(again, out["dice"], equal_nan=True):
-            fail(f"{name} {key}: the npz's Dice is not that of its y_hat")
-        dice[key] = float(np.nanmean(out["dice"]))
+    dice = check_npz(name, exp_dir)
 
     _, task = H.load_experiment(exp_dir, "cuda")
     config, task_cpu = H.load_experiment(exp_dir, "cpu")
@@ -1498,11 +1569,10 @@ def evaluate(name, cli, exp_dir, root):
                     "dice": dice, "first_batch_max_abs_err": err}
 
 
-def eval_harness(tmp, backbone):
+def eval_harness(tmp, backbone, root):
     """Phase 14. Returns the runs' launches by path and the measurements."""
     from tedm_tpu_torch.eval import run_tests, testing_shared_weights
 
-    root = export_hard_corpus(tmp)
     runs, report = [], {}
     head = ["--saved_diffusion_model", backbone, "--n_labelled_images", "1"]
     tedm, counts, report["TEDM step ms"] = corpus_run(tmp, root, "TEDM head", ["--experiment", "TEDM"] + head)
@@ -1526,6 +1596,249 @@ def eval_harness(tmp, backbone):
                                ("PDDM", run_tests, pddm)):
         counts, report[f"{name} eval"] = evaluate(name, cli, exp_dir, root)
         runs.append((f"{name} eval", counts))
+    return runs, report
+
+
+# ------------------------------------------------------------------ phase 15
+
+def cl_pretrain(tmp, experiment, argv=()):
+    """global_cl or local_cl through train.main on synthetic CXR14: CL_STEPS
+    steps at batch 16 (32 views) and one validation of CL_VAL_BATCHES
+    batches. Held: the steps, the validation, the checkpoint and the
+    launches (GlobalCL 4 B.1 + 4 B.1b a step, LocalCL 6 + 2; 4 or 6 B.1 a
+    val batch). Returns the checkpoint, the launches and the measurements."""
+    from tedm_tpu_torch.config import config_from_args
+    from tedm_tpu_torch.train import main as train_main
+
+    argv = ["--experiment", experiment, "--synthetic_data", "--seed", str(SEED), "--max_steps", str(CL_STEPS),
+            "--val_freq", str(CL_STEPS), "--max_val_steps", str(CL_VAL_BATCHES), "--log_freq", "1",
+            "--log_dir", os.path.join(tmp, "cl", experiment), *argv]
+    cfg = config_from_args(argv)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    train_main(argv, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    recs = read_metrics(cfg.log_dir)
+    steps = [r for r in recs if "train/loss" in r]
+    val = [r["val/loss"] for r in recs if "val/loss" in r]
+    step_ms = [1e3 * cfg.batch_size / r["train/imgs_per_sec"] for r in steps]
+    losses = [r["train/loss"] for r in steps]
+    median = statistics.median(step_ms[1:])
+    fwd, bwd = (4, 4) if experiment == "global_cl" else (6, 2)
+    expected = launches(linear_attention=fwd * (CL_STEPS + CL_VAL_BATCHES), linear_attention_backward=bwd * CL_STEPS)
+    print(f"{experiment}: {len(steps)} steps at batch {cfg.batch_size} ({2 * cfg.batch_size} views), "
+          f"{cfg.img_size}^2, fp32, {wall:.1f} s wall with validation; step ms {[round(x, 1) for x in step_ms]}; "
+          f"median of steps 2-{len(steps)} {median:.3f} ms = {1e3 * cfg.batch_size / median:.2f} images/s "
+          f"({2e3 * cfg.batch_size / median:.2f} views/s); losses {[round(x, 4) for x in losses]}; val loss {val}; "
+          f"peak device memory {peak} bytes ({peak / 2**30:.3f} GiB); launches "
+          f"{({k: v for k, v in counts.items() if v})} ({fwd} B.1 + {bwd} B.1b a step, {fwd} B.1 a val batch)",
+          flush=True)
+    if len(steps) != CL_STEPS or len(val) != 1 or not all(math.isfinite(x) for x in losses + val):
+        fail(f"{experiment}: {len(steps)} steps, losses {losses}, val {val}")
+    if counts != expected:
+        fail(f"{experiment}: launches {counts}, expected {expected}")
+    best = os.path.join(cfg.log_dir, "best")
+    if not os.path.isfile(os.path.join(best, "state.pt")):
+        fail(f"{experiment} wrote no best checkpoint")
+    return best, counts, {"step_ms": median, "images_per_s": 1e3 * cfg.batch_size / median, "peak_bytes": peak,
+                          "wall_s": wall, "losses": losses, "val_loss": val[0]}
+
+
+def cl_step_card_vs_cpu(experiment):
+    """One CL step at batch 2 (4 views, made on the host from the seed) on
+    the card and on the CPU plain path, from the same weights (initialised
+    from the seed) and, for LocalCL, the same region centres: the loss and
+    the gradient of every trained tensor, at phase 6's gates."""
+    from tedm_tpu_torch.config import config_from_args
+    from tedm_tpu_torch.data.datasets import SyntheticCXRDataset
+    from tedm_tpu_torch.models.contrastive import region_centres
+    from tedm_tpu_torch.ops.augment import augment_and_concat
+    from tedm_tpu_torch.trainers import contrastive
+    from tedm_tpu_torch.trainers.common import to_nchw
+
+    cfg = config_from_args(["--experiment", experiment, "--seed", str(SEED),
+                            "--log_dir", os.path.join(tempfile.gettempdir(), "unused")])
+    data = SyntheticCXRDataset("cxr_train", 2, cfg.img_size, labelled=False, seed=SEED)
+    gen = torch.Generator().manual_seed(SEED)
+    views = augment_and_concat(to_nchw(np.stack([data[i] for i in range(2)]), "cpu"), gen)
+    side = cfg.img_size * 4 // 2 ** (len(cfg.dim_mults) - 1)  # LocalCL's features: two stages up from the mid
+    centres = region_centres(side, side, gen) if experiment == "local_cl" else None
+    results = {}
+    for device in ("cuda", "cpu"):
+        model = contrastive.build_model(cfg, device)
+        optimizer = torch.optim.Adam(contrastive.trainable_parameters(model), lr=cfg.lr)
+        steps = contrastive.make_steps(cfg, model, optimizer)
+        loss = steps.train_step(None, views=views.to(device), centres=centres)
+        results[device] = (loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None})
+    (loss_g, grads_g), (loss_c, grads_c) = results["cuda"], results["cpu"]
+    if sorted(grads_g) != sorted(grads_c):
+        fail(f"{experiment}: gradients of other tensors on the card and on the CPU")
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    grad_errs = {n: rel_err(grads_g[n], grads_c[n]) for n in grads_c}
+    worst = max(grad_errs, key=grad_errs.get)
+    print(f"{experiment} step at batch 2 (4 views), card vs CPU plain path: loss {loss_g:.6f} vs {loss_c:.6f} "
+          f"(relative {loss_err:.2e}, tol {STEP_LOSS_TOL}); gradients of {len(grad_errs)} tensors, worst relative "
+          f"to the tensor's largest entry {grad_errs[worst]:.2e} at {worst} (tol {STEP_GRAD_TOL}), median "
+          f"{statistics.median(grad_errs.values()):.2e}", flush=True)
+    if not (math.isfinite(loss_g) and loss_err <= STEP_LOSS_TOL and grad_errs[worst] <= STEP_GRAD_TOL):
+        fail(f"the {experiment} step on the card disagrees with the CPU plain path")
+    return {"loss_rel_err": loss_err, "worst_grad_rel_err": grad_errs[worst]}
+
+
+def cl_predictor(logs, size):
+    """One Predictor("Global & Local CL") request on the card (8 B.1
+    launches) against the CPU plain path, at PATH_TOL."""
+    from tedm_tpu_torch.serve.app import Predictor
+
+    img = np.random.RandomState(SEED).rand(1, 128, 128, 1).astype(np.float32)
+    predictor = Predictor(logs_root=logs, device="cuda")
+    predictor.predict(img, "Global & Local CL", size)  # the first request loads the checkpoint
+    reset_launches()
+    t0 = time.perf_counter()
+    mask = predictor.predict(img, "Global & Local CL", size)
+    latency = 1e3 * (time.perf_counter() - t0)
+    counts = read_launches()
+    probs = predictor._probabilities(img, "Global & Local CL", size)
+    probs_cpu = Predictor(logs_root=logs, device="cpu")._probabilities(img, "Global & Local CL", size)
+    err = float(np.abs(probs - probs_cpu).max())
+    print(f"Predictor(\"Global & Local CL\"): one request {latency:.3f} ms, mask foreground {mask.mean():.4f}, "
+          f"launches {({k: v for k, v in counts.items() if v})}; card vs CPU plain path max_abs_err {err:.3e} "
+          f"(tol {PATH_TOL})", flush=True)
+    if counts != per_unet_call(False) or mask.shape != (128, 128) or not err <= PATH_TOL:
+        fail(f"Predictor(\"Global & Local CL\"): launches {counts}, mask {mask.shape}, card vs CPU {err}")
+    return counts, {"latency_ms": latency, "max_abs_err": err}
+
+
+def contrastive_arms(tmp, root):
+    """Phase 15. Returns the runs' launches by path and the measurements."""
+    from tedm_tpu_torch.eval import run_tests
+
+    runs, report = [], {}
+    g_best, counts, report["global_cl"] = cl_pretrain(tmp, "global_cl")
+    runs.append(("global_cl pretraining", counts))
+    report["global_cl"]["card_vs_cpu"] = cl_step_card_vs_cpu("global_cl")
+    l_best, counts, report["local_cl"] = cl_pretrain(tmp, "local_cl", ["--global_model_path", g_best])
+    runs.append(("local_cl pretraining", counts))
+    report["local_cl"]["card_vs_cpu"] = cl_step_card_vs_cpu("local_cl")
+    finetune = ["--n_labelled_images", "197", "--unfreeze_weights_at_step", "3", "--augment_at_finetuning"]
+    glob_loc = ["--experiment", "glob_loc_finetune", "--glob_loc_model_path", l_best] + finetune
+    glob = ["--experiment", "global_finetune", "--global_model_path", g_best] + finetune
+    opt_in = ("--use_pallas_resblock", "--use_pallas_flash")
+    exp_dir = None
+    # the fp32 glob_loc_finetune run first: run_tests and Predictor read it
+    for argv, mixed, flags in ((glob_loc, False, ()), (glob_loc, True, ()), (glob, False, ()), (glob, True, ()),
+                               (glob, False, opt_in)):
+        label = f"{label_of(mixed, flags)}{argv[1]}"
+        run_dir, counts, ms = corpus_run(tmp, root, label, argv, mixed, flags, backward=True)
+        exp_dir = exp_dir or run_dir
+        report[label] = {"step_ms": ms, "images_per_s": 16e3 / ms,
+                         "card_vs_cpu": baseline_step_card_vs_cpu(root, mixed, flags, argv)}
+        runs.append((f"{label} training", counts))
+    counts, report["glob_loc_finetune eval"] = evaluate("glob_loc_finetune", run_tests, exp_dir, root)
+    runs.append(("glob_loc_finetune eval", counts))
+    counts, report["Global & Local CL request"] = cl_predictor(os.path.join(tmp, "eval_logs"), 197)
+    runs.append(("Global & Local CL serving", counts))
+    return runs, report
+
+
+# ------------------------------------------------------------------ phase 16
+
+def conditional_chain(tmp, root):
+    """Phase 16: a conditional backbone through train.main on the corpus's
+    JSRT files (COND_STEPS steps at batch 16, one validation with its
+    1000-step sample grid), run_tests on it with --ddim_steps DDIM_STEPS
+    over the four sets (seconds, images/s, 8 B.1 a UNet call), and one DDIM
+    (eta 0) and one DPM-Solver++(2M) trajectory of one image on the card
+    against the CPU plain path from the same x_T. Returns the runs'
+    launches by path and the measurements."""
+    from tedm_tpu_torch.config import config_from_args
+    from tedm_tpu_torch.eval import harness as H
+    from tedm_tpu_torch.eval import run_tests
+    from tedm_tpu_torch.models.diffusion import ddim_sample_loop, dpmpp2m_sample_loop
+    from tedm_tpu_torch.train import main as train_main
+
+    argv = ["--experiment", "conditional", "--data_dir", os.path.join(root, "JSRT"), "--splits_dir",
+            os.path.join(root, "data"), "--seed", str(SEED), "--ema_decay", "0.999", "--max_steps", str(COND_STEPS),
+            "--val_freq", str(COND_STEPS), "--max_val_steps", "1", "--log_freq", "1",
+            "--log_dir", os.path.join(tmp, "cond", "run")]
+    cfg = config_from_args(argv)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    train_main(argv, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    recs = read_metrics(cfg.log_dir)
+    steps = [r for r in recs if "train/loss" in r]
+    val = [r["val/loss"] for r in recs if "val/loss" in r]
+    step_ms = [1e3 * cfg.batch_size / r["train/imgs_per_sec"] for r in steps]
+    median = statistics.median(step_ms[1:])
+    # one val batch: val_loss in chunks of 8 timesteps and the sample grid's T calls
+    n_t = len(range(0, cfg.timesteps, max(cfg.timesteps // cfg.val_steps, 1)))
+    val_calls = math.ceil(n_t / 8) + cfg.timesteps
+    expected = launches(linear_attention=8 * (COND_STEPS + val_calls), linear_attention_backward=8 * COND_STEPS)
+    print(f"conditional backbone: {len(steps)} steps at batch {cfg.batch_size}, {wall:.1f} s wall with validation; "
+          f"step ms {[round(x, 1) for x in step_ms]}; median of steps 2-{len(steps)} {median:.3f} ms = "
+          f"{1e3 * cfg.batch_size / median:.2f} images/s; val loss {val}; peak device memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB); launches {({k: v for k, v in counts.items() if v})}", flush=True)
+    if len(steps) != COND_STEPS or len(val) != 1 or not all(math.isfinite(x) for x in val):
+        fail(f"conditional backbone: {len(steps)} steps, val {val}")
+    if counts != expected:
+        fail(f"conditional backbone: launches {counts}, expected {expected}")
+    runs = [("conditional training", counts)]
+    report = {"train": {"step_ms": median, "images_per_s": 1e3 * cfg.batch_size / median, "peak_bytes": peak}}
+
+    reset_launches()
+    marks = Marks()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(marks):
+        run_tests.main(["--experiment", cfg.log_dir, "--nih_path", os.path.join(root, "NIH"), "--mon_path",
+                        os.path.join(root, "Montgomery"), "--ddim_steps", str(DDIM_STEPS)], device="cuda")
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    counts = read_launches()
+    calls = sum(math.ceil(n / 16) for n in EVAL_SETS.values()) * EVAL_RUNS * DDIM_STEPS
+    per_set = per_set_times(marks, end)
+    images = sum(EVAL_SETS.values())
+    dice = check_npz("conditional", cfg.log_dir)
+    by_set = ", ".join(f"{k} {v['seconds']:.3f} s" for k, v in per_set.items())
+    print(f"conditional eval (DDIM {DDIM_STEPS} steps, {EVAL_RUNS} runs a batch): {images} images of 4 sets in "
+          f"{end - t0:.2f} s = {images / (end - t0):.2f} images/s, of which the checkpoint load and loaders "
+          f"{marks.marks[0][1] - t0:.2f} s; by set {by_set}; {calls} UNet calls, launches "
+          f"{({k: v for k, v in counts.items() if v})}; mean Dice {dice}", flush=True)
+    if sorted(per_set) != sorted(EVAL_SETS) or counts != launches(linear_attention=8 * calls):
+        fail(f"conditional eval: sets {sorted(per_set)}, launches {counts}, expected {8 * calls} B.1")
+    runs.append(("conditional eval", counts))
+    report["eval"] = {"seconds": end - t0, "images_per_s": images / (end - t0), "per_set": per_set,
+                      "unet_calls": calls, "dice": dice}
+
+    # one trajectory of one image, card vs CPU, from the same x_T
+    batch = next(iter(H.build_jsrt_loaders(cfg)["val"]))
+    x_T = torch.from_numpy(np.random.RandomState(SEED).randn(1, 1, 128, 128).astype(np.float32))
+    gaps = {}
+    for name, loop in (("ddim", ddim_sample_loop), ("dpmpp2m", dpmpp2m_sample_loop)):
+        out = {}
+        for device in ("cuda", "cpu"):
+            _, unet, sched = H.load_diffusion_experiment(cfg.log_dir, device)
+            cond = torch.from_numpy(batch["image"][:1]).permute(0, 3, 1, 2).contiguous().to(device) * 2 - 1
+            with torch.inference_mode():
+                out[device] = loop(lambda x, t: unet(torch.cat([x, cond], dim=1), t), sched, (1, 1, 128, 128),
+                                   num_steps=DDIM_STEPS, x_T=x_T.to(device)).cpu()
+        gaps[name] = (out["cuda"] - out["cpu"]).abs().max().item()
+        print(f"{name} trajectory ({DDIM_STEPS} steps, one image), card vs CPU plain path: max_abs_err "
+              f"{gaps[name]:.3e} (tol {SAMPLER_TOL}); sample in [{out['cuda'].min():.4f}, {out['cuda'].max():.4f}]",
+              flush=True)
+        if not (torch.isfinite(out["cuda"]).all() and gaps[name] <= SAMPLER_TOL):
+            fail(f"the {name} trajectory on the card disagrees with the CPU plain path: {gaps[name]}")
+    report["trajectory_max_abs_err"] = gaps
     return runs, report
 
 
@@ -1613,11 +1926,16 @@ def main() -> None:
             opt_in.append(("--use_pallas_groupnorm training (b)",
                            train_head(tmp, backbone, False, ("--use_pallas_groupnorm",), HEAD_STEPS)))
         with Phase("14. eval harness, baseline and PDDM on a corpus of files"):
-            evals, eval_report = eval_harness(tmp, backbone)
+            root = export_hard_corpus(tmp)
+            evals, eval_report = eval_harness(tmp, backbone, root)
+        with Phase("15. contrastive arms: pretraining, finetunes, eval, serving"):
+            cl_runs, cl_report = contrastive_arms(tmp, root)
+        with Phase("16. samplers and the conditional eval"):
+            cond_runs, cond_report = conditional_chain(tmp, root)
 
     paths = add_paths(("serving", served["launches"]), ("training (a)", a32), ("training (b)", b32),
                       ("bf16 serving", served16["launches"]), ("bf16 training (a)", a16),
-                      ("bf16 training (b)", b16), *opt_in, *evals)
+                      ("bf16 training (b)", b16), *opt_in, *evals, *cl_runs, *cond_runs)
     bounded = lambda rows: "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations"
     gn_req = [(s, torch.float32, f) for s, f in gn_calls(8)]
     rb_req = [(s, torch.float32) for s in rb_shapes(8)]
@@ -1724,7 +2042,7 @@ def main() -> None:
     for kern in kernels:
         if kern["launches"] == 0:
             fail(f"{kern['name']} was never launched on the main path")
-    print(json.dumps({"kernels": kernels, "phase_14": eval_report}))
+    print(json.dumps({"kernels": kernels, "phase_14": eval_report, "phase_15": cl_report, "phase_16": cond_report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

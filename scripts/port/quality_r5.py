@@ -9,7 +9,12 @@ an ``img_only`` backbone at seed 0 (``--backbone_seed``); train heads on it
 at each n of ``--sizes`` and each seed of ``--seeds`` (``Step_<t>``, the PDDM probe at
 timestep t, at the first seed only, as r5 ran it); evaluate each head with
 ``tedm_tpu_torch.eval.run_tests`` (``testing_shared_weights`` for TEDM)
-over JSRT_val, JSRT_test, NIH and Montgomery. Writes
+over JSRT_val, JSRT_test, NIH and Montgomery. The contrastive arm
+(``--experiments ... global_finetune glob_loc_finetune``): ``global_cl``
+for ``--cl_steps`` steps on the corpus's CXR14 files, ``local_cl`` as long
+from it, then the two finetunes from them at each n and seed, as the
+heads (the JAX package has no value on this protocol: these cells have no
+band). Writes
 ``<out>/s<seed>/summary.json`` in ``run_tpu.py``'s schema and
 ``<out>/quality.json``: per cell and set the port's Dice x100 by seed, the
 r5 values, and on JSRT_test whether the mean of the port's seeds lies in
@@ -19,6 +24,9 @@ a cell with one r5 value, that value +-1.5). A backbone already in
 evaluated anew.
 
     python scripts/port/quality_r5.py --root DIR/corpus --out DIR/runs
+    # with the contrastive arm:
+    python scripts/port/quality_r5.py --root DIR/corpus --out DIR/runs --seeds 0 \\
+        --experiments baseline global_finetune glob_loc_finetune
     # a tiny run of the logic on the CPU:
     python scripts/port/quality_r5.py --root R --out O --img_size 16 --n_cxr 8 \\
         --backbone_steps 2 --head_steps 2 --sizes 1 --seeds 0 --device cpu \\
@@ -123,7 +131,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="the backbone's seed (r5: 0); another shows how much the heads move with the backbone")
     ap.add_argument("--batch_size", type=int, default=16)
     ap.add_argument("--experiments", nargs="+", default=["baseline", "TEDM", "Step_1"],
-                    help="baseline, LEDM, LEDMe, TEDM, Step_<t> (PDDM at timestep t)")
+                    help="baseline, LEDM, LEDMe, TEDM, Step_<t> (PDDM at timestep t), global_finetune, "
+                         "glob_loc_finetune")
+    ap.add_argument("--cl_steps", type=int, default=300, help="steps of global_cl and of local_cl")
     ap.add_argument("--device", type=str, default="cuda")
     ap.add_argument("--extra", nargs=argparse.REMAINDER, default=[],
                     help="arguments appended to every training command")
@@ -152,7 +162,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     backbone = os.path.join(args.out, "CXR14", "run", "best")
     timing = {}
-    if os.path.isdir(backbone):
+    if not set(args.experiments) - {"baseline", "global_finetune", "glob_loc_finetune"}:
+        print("=== backbone: not needed ===", flush=True)
+    elif os.path.isdir(backbone):
         print(f"=== backbone: reusing {backbone} ===", flush=True)
     else:
         print("=== backbone (img_only) ===", flush=True)
@@ -162,6 +174,27 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     "--val_freq", str(max(args.backbone_steps // 2, 1)), "--max_val_steps", "4",
                     "--n_sampled_imgs", "2", "--seed", str(args.backbone_seed)] + with_data("CXR14"), device=dev)
         timing["backbone"] = {"train_s": time.perf_counter() - t0}
+
+    # the contrastive pretraining the finetunes start from, at the backbone's seed
+    pretrained = {}
+    if {"global_finetune", "glob_loc_finetune"} & set(args.experiments):
+        for exp, warm in (("global_cl", []), ("local_cl", ["--global_model_path", "global_cl"])):
+            found = glob.glob(os.path.join(args.out, exp, "*", "run", "best"))
+            if found:
+                print(f"=== {exp}: reusing {found[0]} ===", flush=True)
+            else:
+                print(f"=== {exp} ===", flush=True)
+                t0 = time.perf_counter()
+                train_main(["--experiment", exp, "--log_dir", os.path.join(args.out, "run"),
+                            "--max_steps", str(args.cl_steps), "--log_freq", "100",
+                            "--val_freq", str(max(args.cl_steps // 2, 1)), "--max_val_steps", "4",
+                            "--seed", str(args.backbone_seed)] + [pretrained.get(a, a) for a in warm]
+                           + with_data("CXR14"), device=dev)
+                timing[exp] = {"train_s": time.perf_counter() - t0}
+                found = glob.glob(os.path.join(args.out, exp, "*", "run", "best"))
+            pretrained[exp] = found[0]
+    warm_start = {"global_finetune": ["--global_model_path", "global_cl"],
+                  "glob_loc_finetune": ["--glob_loc_model_path", "local_cl"]}
 
     summaries = {}
     for seed in args.seeds:
@@ -175,13 +208,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             if step_t is not None and seed != args.seeds[0]:
                 continue
             cli_exp = "PDDM" if step_t is not None else exp
-            tag = {"baseline": "b", "LEDM": "l", "LEDMe": "e", "TEDM": "t"}.get(cli_exp, f"s{step_t}n")
+            tag = {"baseline": "b", "LEDM": "l", "LEDMe": "e", "TEDM": "t", "global_finetune": "g",
+                   "glob_loc_finetune": "gl"}.get(cli_exp, f"s{step_t}n")
             for n in args.sizes:
                 print(f"=== {exp} n={n} seed={seed} ===", flush=True)
                 cmd = ["--experiment", cli_exp, "--n_labelled_images", str(n), "--seed", str(seed),
                        "--log_dir", os.path.join(out, f"{tag}{n}"), "--max_steps", str(args.head_steps),
                        "--log_freq", "50", "--val_freq", str(min(50, args.head_steps))]
-                if cli_exp != "baseline":
+                if cli_exp in warm_start:
+                    cmd += [pretrained.get(a, a) for a in warm_start[cli_exp]]
+                elif cli_exp != "baseline":
                     cmd += ["--saved_diffusion_model", backbone]
                 if step_t is not None:
                     cmd += ["--t_steps_to_save", str(step_t)]

@@ -169,13 +169,16 @@ def build_dataloaders(
     shard_count: int = 1,
     synthetic: bool = False,
     splits_dir: Optional[str] = None,
+    drop_last: bool = False,
 ) -> Dict[str, Loader]:
     """Train, val and test loaders of ``dataset`` (JSRT or CXR14), read from
     ``data_dir`` with the split CSVs of ``splits_dir`` (the port's copies by
     default), or from the synthetic corpus with the same split sizes
     (``synthetic``, or no ``data_dir``). Train is shuffled and sharded; val
     and test are neither. The JSRT train subset is its first
-    ``n_labelled_images`` rows (reference: dataloaders/JSRT.py:29-31)."""
+    ``n_labelled_images`` rows (reference: dataloaders/JSRT.py:29-31).
+    ``drop_last`` drops every loader's last partial batch instead of padding
+    it (the contrastive trainers: a padding row must not reach their losses)."""
     from tedm_tpu_torch.data.datasets import (
         SPLITS_DIR,
         CXR14Dataset,
@@ -188,7 +191,7 @@ def build_dataloaders(
 
     def mk(ds, shuffle, shard, subset=None):
         return Loader(
-            ds, batch_size, shuffle=shuffle, seed=seed,
+            ds, batch_size, shuffle=shuffle, seed=seed, drop_last=drop_last,
             shard_index=shard_index if shard else 0,
             shard_count=shard_count if shard else 1,
             num_workers=num_workers, subset=subset,

@@ -3,7 +3,8 @@ of ``tedm_tpu/eval/harness.py``; reference: auxiliary/postprocessing/run_tests.p
 
 * Restore an experiment: ``<dir>/best/state.pt`` with ``config.json``
   beside it; the task is rebuilt from the embedded ``config.experiment``
-  (the baseline, the LEDM/LEDMe/TEDM heads, PDDM; the reference's aliases
+  (the baseline and the two contrastive finetunes, which are baseline
+  UNets; the LEDM/LEDMe/TEDM heads, PDDM; the reference's aliases
   ``datasetDM`` and ``simple_datasetDM`` too, run_tests.py:63-70) and each of
   its modules loads the state_dict under its key.
 * The four test sets: JSRT val and test (the split CSVs), NIH and
@@ -12,16 +13,20 @@ of ``tedm_tpu/eval/harness.py``; reference: auxiliary/postprocessing/run_tests.p
   head), per-image Dice, precision and recall, and ``.npz`` files with the
   JAX package's keys.
 
-The conditional chain (``load_diffusion_experiment``,
-``make_conditional_sampler``, ``predict_conditional_dataset``) is ROADMAP
-item A.5e; ``eval_parallel_setup`` is not ported: evaluation runs on one
-device (A.5h).
+* The conditional chain (tedm_tpu/eval/harness.py:136-225): a diffusion
+  backbone restored with its EMA weights (unless ``serve_raw_params``),
+  segmentations sampled conditioned on [x, 2 img - 1] by DDIM under
+  ``--ddim_steps`` > 0, else by the full T-step ancestral loop, the mean of
+  ``n_runs`` trajectories a batch.
+
+``eval_parallel_setup`` is not ported: evaluation runs on one device
+(ROADMAP item A.5h).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Callable, Dict, Iterable, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,6 +40,8 @@ from tedm_tpu_torch.utils.checkpoint import checkpoint_exists, load_checkpoint, 
 from tedm_tpu_torch.utils.device import resolve_device
 
 DATASET_KEYS = ("JSRT_val", "JSRT_test", "NIH", "Montgomery")
+# the contrastive finetunes are baseline UNets (tedm_tpu/eval/harness.py:60-63)
+BASELINE_EXPERIMENTS = ("baseline", "global_finetune", "glob_loc_finetune")
 DATASETDM_EXPERIMENTS = ("LEDM", "LEDMe", "TEDM", "datasetDM")
 PDDM_EXPERIMENTS = ("PDDM", "simple_datasetDM")
 
@@ -44,7 +51,7 @@ def build_eval_task(config: Config, device: Union[str, torch.device] = "cuda"):
     run_tests.py:63-70). PDDM skips its standardisation pre-pass: the
     checkpoint's statistics overwrite it."""
     exp = config.experiment
-    if exp == "baseline":
+    if exp in BASELINE_EXPERIMENTS:
         from tedm_tpu_torch.trainers.baseline import build_task
 
         return build_task(config, device)
@@ -56,10 +63,6 @@ def build_eval_task(config: Config, device: Union[str, torch.device] = "cuda"):
         from tedm_tpu_torch.trainers.per_step import build_task
 
         return build_task(config, device, compute_stats=False)
-    if exp in ("global_finetune", "glob_loc_finetune"):
-        raise NotImplementedError(
-            f"experiment {exp!r} is not ported yet: the contrastive finetunes are ROADMAP item A.5d"
-        )
     raise ValueError(f"Experiment {exp} not recognized")
 
 
@@ -113,6 +116,83 @@ def build_test_loaders(
         out["Montgomery"] = mk(MonDataset(mon_path, mon_csv, img_size=config.img_size,
                                           splits_dir=sdir or mon_path))
     return out
+
+
+def load_diffusion_experiment(
+    exp_dir: str, device: Union[str, torch.device] = "cuda"
+) -> Tuple[Config, torch.nn.Module, Any]:
+    """Restore a diffusion checkpoint (img_only, joint, conditional) as
+    (config, UNet in eval mode, schedule) on ``device``: the EMA weights
+    when the checkpoint has them, unless its config sets
+    ``serve_raw_params``."""
+    from tedm_tpu_torch.ops.schedules import make_schedule
+    from tedm_tpu_torch.trainers.diffusion import build_model
+
+    dev = resolve_device(device)
+    ckpt = os.path.join(exp_dir, "best")
+    config = load_config(ckpt)
+    state, _ = load_checkpoint(ckpt, map_location=dev, verbose=False)
+    unet = build_model(config)
+    unet.load_state_dict(state["params"] if config.serve_raw_params else state.get("ema_params", state["params"]))
+    sched = make_schedule(config.timesteps, config.beta_schedule, config.p2_loss_weight_gamma,
+                          config.p2_loss_weight_k)
+    return config, unet.to(dev).eval().requires_grad_(False), sched.to(dev)
+
+
+def make_conditional_sampler(config: Config, unet: torch.nn.Module, sched) -> Callable[..., torch.Tensor]:
+    """``run_once(cond, generator=None, x_T=None, noises=None)``: one
+    segmentation trajectory conditioned on ``cond`` (B, 1, H, W) in [-1, 1],
+    in [0, 1] (run_tests.py:131). DDIM under ``config.ddim_steps`` > 0
+    (``x_T`` and ``noises`` as ``ddim_sample_loop`` takes them), else the
+    full ancestral loop from ``generator``."""
+    from tedm_tpu_torch.models.diffusion import ddim_sample_loop, sample_loop
+
+    @torch.inference_mode()
+    def run_once(cond, generator=None, x_T=None, noises=None):
+        apply_fn = lambda x, t: unet(torch.cat([x, cond], dim=1), t)
+        shape = (cond.shape[0], 1, *cond.shape[2:])
+        kw = dict(objective=config.objective, dynamic_threshold_percentile=config.dynamic_threshold_percentile)
+        if config.ddim_steps > 0:
+            x0 = ddim_sample_loop(apply_fn, sched, shape, generator, num_steps=config.ddim_steps, x_T=x_T,
+                                  noises=noises, **kw)
+        else:
+            x0 = sample_loop(apply_fn, sched, shape, generator, **kw)
+        return x0 * 0.5 + 0.5
+
+    return run_once
+
+
+def predict_conditional_dataset(
+    config: Config,
+    unet: torch.nn.Module,
+    sched,
+    loader,
+    generator: Optional[torch.Generator] = None,
+    n_runs: int = 5,
+    run_once: Optional[Callable[..., torch.Tensor]] = None,
+    draws: Optional[Iterable[Tuple[torch.Tensor, Optional[Sequence[torch.Tensor]]]]] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The reference's costliest inference (run_tests.py:121-137): per batch,
+    the mean of ``n_runs`` trajectories of the segmentation conditioned on
+    the image, as (y_hat, y_star) NHWC numpy without the padding rows.
+    ``draws`` gives each run's (x_T, DDIM noises), NCHW, batch by batch;
+    else they come from ``generator``. Pass a ``run_once`` built once
+    (``make_conditional_sampler``) when evaluating several sets."""
+    run_once = run_once or make_conditional_sampler(config, unet, sched)
+    dev = next(unet.parameters()).device
+    draws = None if draws is None else iter(draws)
+    y_hats, y_stars = [], []
+    for batch in loader:
+        cond = to_nchw(batch["image"], dev) * 2.0 - 1.0
+        runs = []
+        for _ in range(n_runs):
+            x_T, noises = next(draws) if draws is not None else (None, None)
+            runs.append(run_once(cond, generator, x_T, noises))
+        pred = torch.stack(runs).mean(dim=0).permute(0, 2, 3, 1).cpu().numpy()
+        nvalid = int(batch["valid"].sum())
+        y_hats.append(pred[:nvalid])
+        y_stars.append(batch["mask"][:nvalid])
+    return np.concatenate(y_hats), np.concatenate(y_stars)
 
 
 def make_predict_fn(task) -> Callable[..., torch.Tensor]:

@@ -2,7 +2,7 @@
 auxiliary/postprocessing/run_tests.py).
 
     python -m tedm_tpu_torch.eval.run_tests --experiment <logdir>/<n>/<ts> [--rerun]
-        [--nih_path DIR] [--mon_path DIR]
+        [--nih_path DIR] [--mon_path DIR] [--ddim_steps N]
 
 Evaluates the checkpointed model on the card over JSRT_val, JSRT_test, NIH
 and Montgomery, writes ``{dataset}_predictions.npz`` (keys: y_hat, y_star,
@@ -10,9 +10,11 @@ dice, precision, recall) into the experiment directory, prints mean+/-std
 metrics, and skips the sets already evaluated unless ``--rerun``
 (run_tests.py:40-49,107-113). For a folded (TEDM) head the prediction is
 the sigmoid averaged over timesteps (``testing_shared_weights`` keeps the
-per-timestep ones). The feature noise comes from a generator seeded with
-``config.seed + 777``. The conditional experiment's sampling chain is
-ROADMAP item A.5e.
+per-timestep ones). A ``conditional`` diffusion backbone is evaluated by its
+sampling chain: the mean of 5 trajectories conditioned on each image, by
+DDIM under ``--ddim_steps`` > 0 (the checkpoint config's, unless the flag
+is given here), else by the full ancestral loop (run_tests.py:121-137). The noise comes from a generator seeded with
+``config.seed + 777``.
 """
 
 from __future__ import annotations
@@ -28,9 +30,12 @@ from tedm_tpu_torch.eval.harness import (
     DATASET_KEYS,
     build_test_loaders,
     compute_output,
+    load_diffusion_experiment,
     load_experiment,
+    make_conditional_sampler,
     load_output,
     make_predict_fn,
+    predict_conditional_dataset,
     predict_dataset,
     print_metrics,
     save_output,
@@ -45,8 +50,10 @@ def evaluate_experiment(
     nih_path: Optional[str] = None,
     mon_path: Optional[str] = None,
     device: Union[str, torch.device] = "cuda",
+    ddim_steps: Optional[int] = None,
 ) -> Dict[str, Dict[str, np.ndarray]]:
-    """Evaluate ``exp_dir`` on ``device``; returns {dataset key: output}."""
+    """Evaluate ``exp_dir`` on ``device``; returns {dataset key: output}.
+    ``ddim_steps`` replaces the conditional backbone's own setting."""
     files = set(os.listdir(exp_dir))
     results = {}
     if {f"{k}_predictions.npz" for k in DATASET_KEYS} <= files and not rerun:
@@ -57,13 +64,16 @@ def evaluate_experiment(
             results[key] = out
         return results
 
-    if load_config(os.path.join(exp_dir, "best")).experiment == "conditional":
-        raise NotImplementedError(
-            "evaluating the conditional experiment is not ported yet: its sampling chain is ROADMAP item A.5e"
-        )
     dev = resolve_device(device)
-    config, task = load_experiment(exp_dir, dev)
-    fwd = make_predict_fn(task)
+    conditional = load_config(os.path.join(exp_dir, "best")).experiment == "conditional"
+    if conditional:
+        config, unet, sched = load_diffusion_experiment(exp_dir, dev)
+        if ddim_steps is not None:
+            config = config.replace(ddim_steps=ddim_steps)
+        run_once = make_conditional_sampler(config, unet, sched)  # one sampler for the four sets
+    else:
+        config, task = load_experiment(exp_dir, dev)
+        fwd = make_predict_fn(task)
     loaders = build_test_loaders(config, nih_path, mon_path)
     generator = torch.Generator(device=dev).manual_seed(config.seed + 777)
 
@@ -76,9 +86,12 @@ def evaluate_experiment(
             results[key] = out
             continue
         print(f"Testing {key} set")
-        y_hat, y_star = predict_dataset(task, loader, generator, fold=task.fold, fwd=fwd)
-        if task.fold > 1:
-            y_hat = y_hat.mean(axis=0)  # ensemble over timesteps (app.py:79)
+        if conditional:
+            y_hat, y_star = predict_conditional_dataset(config, unet, sched, loader, generator, run_once=run_once)
+        else:
+            y_hat, y_star = predict_dataset(task, loader, generator, fold=task.fold, fwd=fwd)
+            if task.fold > 1:
+                y_hat = y_hat.mean(axis=0)  # ensemble over timesteps (app.py:79)
         out = compute_output(y_hat, y_star)
         print_metrics(key, out)
         save_output(path, out)
@@ -92,13 +105,15 @@ def main(argv: Optional[Sequence[str]] = None, device: Union[str, torch.device] 
     parser.add_argument("--rerun", "-r", default=False, action="store_true", help="Run the test again")
     parser.add_argument("--nih_path", type=str, default=None)
     parser.add_argument("--mon_path", type=str, default=None)
+    parser.add_argument("--ddim_steps", type=int, default=None,
+                        help="conditional backbones: DDIM steps (0: the full ancestral loop)")
     args = parser.parse_args(argv)
     if os.path.isdir(args.experiment):
         print("Experiment path identified as a directory")
     else:
         raise ValueError("Experiment path is not a directory")
     strict_fp32()
-    evaluate_experiment(args.experiment, args.rerun, args.nih_path, args.mon_path, device)
+    evaluate_experiment(args.experiment, args.rerun, args.nih_path, args.mon_path, device, args.ddim_steps)
 
 
 if __name__ == "__main__":

@@ -12,8 +12,11 @@ images' device. The JAX package draws from split PRNG keys instead; the two
 never agree, so the tests hand JAX's draws to the port.
 
 The JAX package runs the 1000-step reverse trajectory as one ``lax.scan``;
-here it is a Python loop of UNet calls under ``torch.no_grad``. DDIM and
-DPM-Solver++ sampling wait for a later slice.
+here it is a Python loop of UNet calls under ``torch.no_grad``, and so are
+DDIM and DPM-Solver++(2M) over a subsequence of the steps. Their x_T (and
+DDIM's per-step noise) are arguments, or are drawn from a generator; their
+per-step coefficients are computed in fp32 from the schedule, in the JAX
+package's order, on the host.
 
 Under ``--mixed_precision`` the UNet returns bf16 while the images, the
 noise and the sampler's x stay fp32, as in the JAX package: the losses take
@@ -23,7 +26,7 @@ promotes to fp32 in PyTorch as in JAX.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -210,6 +213,117 @@ def sample_loop(
     x, _ = sample_loop_with_snapshots(
         apply_fn, sched, shape, generator, 1, objective, dynamic_threshold_percentile, dtype
     )
+    return x
+
+
+def step_grid(num_timesteps: int, n: int) -> List[int]:
+    """``n`` timesteps evenly spaced over [0, T-1], descending, as the JAX
+    samplers take them: ``jnp.linspace(0, T-1, n)`` in fp32 as XLA
+    evaluates it, i * ((T-1) * fp32(1 / (n-1))), which can land an ulp off
+    a half, then rounded half to even."""
+    if n == 1:
+        return [0]
+    r = torch.tensor(1.0, dtype=torch.float32) / (n - 1)
+    stop = torch.tensor(num_timesteps - 1, dtype=torch.float32)
+    grid = torch.cat([torch.arange(n - 1, dtype=torch.float32) * (stop * r), stop[None]])
+    return grid.round().long().flip(0).tolist()
+
+
+@torch.no_grad()
+def ddim_sample_loop(
+    apply_fn: ApplyFn,
+    sched: DiffusionSchedule,
+    shape: Tuple[int, ...],
+    generator: Optional[torch.Generator] = None,
+    num_steps: int = 50,
+    eta: float = 0.0,
+    objective: str = "pred_noise",
+    dynamic_threshold_percentile: float = 0.995,
+    dtype: torch.dtype = torch.float32,
+    x_T: Optional[torch.Tensor] = None,
+    noises: Optional[Sequence[torch.Tensor]] = None,
+) -> torch.Tensor:
+    """DDIM (Song et al. 2021) over ``num_steps`` of the T-step schedule
+    (tedm_tpu/models/diffusion.py:241-284), from ``x_T`` ~ N(0, 1), with
+    ``noises[i]`` the noise of step i (drawn from ``generator`` when not
+    given; none is drawn at ``eta`` 0, where it is multiplied by 0). Each
+    step's x_0 is dynamically thresholded and the noise recomputed from it;
+    the last step lands on x_0 (t_prev = -1). Returns the sample in [-1, 1]."""
+    T = sched.num_timesteps
+    ts = step_grid(T, num_steps)
+    ts_prev = ts[1:] + [-1]
+    a_bar = sched.alphas_cumprod.float().cpu()
+    a_t = a_bar[ts]
+    a_prev = torch.where(torch.tensor(ts_prev) >= 0, a_bar[[max(t, 0) for t in ts_prev]], torch.ones(()))
+    sigma = eta * torch.sqrt((1 - a_prev) / (1 - a_t)) * torch.sqrt(1 - a_t / a_prev)
+    c_dir = torch.sqrt(torch.clamp(1.0 - a_prev - sigma ** 2, min=0.0)).tolist()
+    c_x0 = torch.sqrt(a_prev).tolist()
+    sigma = sigma.tolist()
+    dev = sched.alphas_cumprod.device
+    x = x_T if x_T is not None else torch.randn(shape, generator=generator, device=dev, dtype=dtype)
+    for i, t in enumerate(ts):
+        tb = torch.full((shape[0],), t, dtype=torch.long, device=dev)
+        _, x_0 = model_predictions(apply_fn, sched, x, tb, objective)
+        x_0 = dynamic_threshold(x_0, dynamic_threshold_percentile)
+        pred_noise = predict_noise_from_x0(sched, x, tb, x_0)
+        x_new = c_x0[i] * x_0 + c_dir[i] * pred_noise
+        if sigma[i] != 0.0 and ts_prev[i] >= 0:
+            noise = noises[i] if noises is not None else _randn(shape, x, generator)
+            x_new = x_new + sigma[i] * noise
+        x = x_new.to(dtype)
+    return x
+
+
+@torch.no_grad()
+def dpmpp2m_sample_loop(
+    apply_fn: ApplyFn,
+    sched: DiffusionSchedule,
+    shape: Tuple[int, ...],
+    generator: Optional[torch.Generator] = None,
+    num_steps: int = 20,
+    objective: str = "pred_noise",
+    dynamic_threshold_percentile: float = 0.995,
+    dtype: torch.dtype = torch.float32,
+    x_T: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """DPM-Solver++(2M) (Lu et al. 2022; tedm_tpu/models/diffusion.py:287-351):
+    deterministic second-order multistep sampling in log-SNR time with the
+    data prediction, from ``x_T`` (drawn from ``generator`` when not given).
+    With lambda = log(alpha / sigma), h_i = lambda_i - lambda_{i-1} and
+    r = h_{i-1} / h_i:
+
+        D = (1 + 1/(2r)) x0_i - 1/(2r) x0_{i-1}       (the first step: D = x0)
+        x <- (sigma_i / sigma_{i-1}) x - alpha_i (exp(-h_i) - 1) D
+
+    The last step goes to the clean state (sigma 0, alpha 1, exp(-h) 0), as
+    DDIM's t_prev = -1. Returns the sample in [-1, 1]."""
+    T = sched.num_timesteps
+    ts = step_grid(T, num_steps + 1)
+    a_bar = sched.alphas_cumprod.float().cpu()
+    alpha = torch.sqrt(a_bar)
+    sig = torch.sqrt(1.0 - a_bar)
+    lam = torch.log(alpha) - torch.log(sig)
+    dev = sched.alphas_cumprod.device
+    x = x_T if x_T is not None else torch.randn(shape, generator=generator, device=dev, dtype=dtype)
+    x0_prev = None
+    lam_prev_prev = lam[ts[0]]
+    for t_from, t_to in zip(ts[:-1], ts[1:]):
+        tb = torch.full((shape[0],), t_from, dtype=torch.long, device=dev)
+        _, x0 = model_predictions(apply_fn, sched, x, tb, objective)
+        x0 = dynamic_threshold(x0, dynamic_threshold_percentile)
+        l_from, l_to = lam[t_from], lam[t_to]
+        h = l_to - l_from
+        if x0_prev is None:
+            d = x0
+        else:
+            r = (l_from - lam_prev_prev) / h
+            d = float(1.0 + 1.0 / (2.0 * r)) * x0 - float(1.0 / (2.0 * r)) * x0_prev
+        if t_to == 0:
+            c_x, c_d = 0.0, 1.0
+        else:
+            c_x, c_d = float(sig[t_to] / sig[t_from]), float(-(alpha[t_to] * (torch.exp(-h) - 1.0)))
+        x = (c_x * x + c_d * d).to(dtype)
+        x0_prev, lam_prev_prev = x0, l_from
     return x
 
 

@@ -12,6 +12,9 @@ the ones ``tedm_tpu/utils/torch_port.py`` reads (``downs.0.2.fn.fn.to_qkv.weight
 ``ups.0.3.1.weight``, ``mid_attn.fn.norm.g``, ...) and a reference
 ``best_model.pt`` loads as it is. ``extract_features=True`` also returns the
 four up-stage attention outputs, the features of the segmentation heads.
+``forward`` is ``encode``, ``run_mid``, ``decode`` and ``final`` in turn
+(tedm_tpu/models/unet.py:630-681); the contrastive models run the first
+three alone, ``decode`` over its first stages.
 
 ``dtype`` is the compute dtype, with flax's ``dtype=`` semantics module by
 module (tedm_tpu/models/unet.py): the parameters stay fp32; every conv and
@@ -366,6 +369,51 @@ class Unet(nn.Module):
             if hasattr(m, "compute_dtype"):
                 m.compute_dtype = dtype
 
+    def encode(
+        self, x: torch.Tensor, temb: Optional[torch.Tensor]
+    ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor]]:
+        """init_conv and the down path: (bottleneck, init residual, skips)."""
+        x = self.init_conv(x)
+        r = x
+        hs: List[torch.Tensor] = []
+        for block1, block2, attn, downsample in self.downs:
+            x = block1(x, temb)
+            hs.append(x)
+            x = attn(block2(x, temb))
+            hs.append(x)
+            x = downsample(x)
+        return x, r, hs
+
+    def run_mid(self, x: torch.Tensor, temb: Optional[torch.Tensor]) -> torch.Tensor:
+        return self.mid_block2(self.mid_attn(self.mid_block1(x, temb)), temb)
+
+    def decode(
+        self,
+        x: torch.Tensor,
+        r: torch.Tensor,
+        hs: Sequence[torch.Tensor],
+        temb: Optional[torch.Tensor],
+        collect_features: bool = False,
+        n_stages: Optional[int] = None,
+    ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """The up path, or its first ``n_stages`` stages (each with its
+        upsample), on the skips ``hs`` (left as they are). With
+        ``collect_features`` also the post-attention map of every stage run."""
+        hs = list(hs)
+        feats: List[torch.Tensor] = []
+        stages = self.ups if n_stages is None else self.ups[:n_stages]
+        for block1, block2, attn, upsample in stages:
+            x = block1(torch.cat([x, hs.pop()], dim=1), temb)
+            x = block2(torch.cat([x, hs.pop()], dim=1), temb)
+            x = attn(x)
+            if collect_features:
+                feats.append(x)
+            x = upsample(x)
+        return x, feats
+
+    def final(self, x: torch.Tensor, r: torch.Tensor, temb: Optional[torch.Tensor]) -> torch.Tensor:
+        return self.final_conv(self.final_res_block(torch.cat([x, r], dim=1), temb))
+
     def forward(
         self,
         x: torch.Tensor,
@@ -377,27 +425,10 @@ class Unet(nn.Module):
         ``extract_features`` returns (out, [the 4 up-stage attention outputs]),
         all in the compute dtype."""
         temb = self.time_mlp(time) if time is not None else None
-        x = self.init_conv(x)
-        r = x
-        hs: List[torch.Tensor] = []
-        for block1, block2, attn, downsample in self.downs:
-            x = block1(x, temb)
-            hs.append(x)
-            x = attn(block2(x, temb))
-            hs.append(x)
-            x = downsample(x)
-
-        x = self.mid_block2(self.mid_attn(self.mid_block1(x, temb)), temb)
-
-        feats: List[torch.Tensor] = []
-        for block1, block2, attn, upsample in self.ups:
-            x = block1(torch.cat([x, hs.pop()], dim=1), temb)
-            x = block2(torch.cat([x, hs.pop()], dim=1), temb)
-            x = attn(x)
-            feats.append(x)
-            x = upsample(x)
-
-        out = self.final_conv(self.final_res_block(torch.cat([x, r], dim=1), temb))
+        x, r, hs = self.encode(x, temb)
+        x = self.run_mid(x, temb)
+        x, feats = self.decode(x, r, hs, temb, collect_features=extract_features)
+        out = self.final(x, r, temb)
         if extract_features:
             return out, feats
         return out

@@ -1,15 +1,15 @@
 """Headless segmentation serving (port of ``tedm_tpu/serve/app.py``).
 
-``Predictor`` serves the Baseline, LEDM, LEDMe, TEDM and PDDM models from
-``<logs_root>/<folder>/<size>/best`` checkpoints (the folders of
-``MODEL_FOLDERS``; PDDM is the port's addition), restored by the eval
-harness's ``load_experiment``: load a CXR, predict the lung mask, optionally
-post-process (keep the two largest connected components and draw their
-boundary, reference app.py:97-110). Models are cached after their first
-load. The contrastive models (Global CL, Global & Local CL) are ROADMAP
-item A.5d. Images go in and masks come out as NHWC
-numpy, as in the JAX package. The gradio UI and the grid composer wait for
-a later slice.
+``Predictor`` serves the Baseline, Global CL, Global & Local CL, LEDM,
+LEDMe, TEDM and PDDM models from ``<logs_root>/<folder>/<size>/best``
+checkpoints (the folders of ``MODEL_FOLDERS``; PDDM is the port's
+addition), restored by the eval harness's ``load_experiment`` (the two
+contrastive finetunes as baseline UNets): load a CXR, predict the lung
+mask, optionally post-process (keep the two largest connected components
+and draw their boundary, reference app.py:97-110). Models are cached after
+their first load. Images go in and masks come out as NHWC numpy, as in the
+JAX package. The gradio UI, the grid composer and export are ROADMAP item
+A.5f.
 """
 
 from __future__ import annotations

@@ -1,13 +1,15 @@
 """Experiment dispatcher (port of ``tedm_tpu/train.py``; reference: train.py:15-56).
 
     python -m tedm_tpu_torch.train --experiment {img_only,joint,conditional,
-        joint_and_cond,baseline,LEDM,LEDMe,TEDM,PDDM} [--synthetic_data |
+        joint_and_cond,baseline,LEDM,LEDMe,TEDM,PDDM,global_cl,local_cl,
+        global_finetune,glob_loc_finetune} [--synthetic_data |
         --data_dir DIR [--splits_dir DIR]] [...]
 
 The flags are the JAX package's (``tedm_tpu_torch.config.build_parser``).
 Training runs on the card; ``main(argv, device="cpu")`` runs the plain
-PyTorch path on the CPU. The experiments and flags whose features the port
-does not have yet raise ``NotImplementedError`` naming their ROADMAP item.
+PyTorch path on the CPU. The flags whose features the port does not have
+yet (ROADMAP items A.5g and A.5h) raise ``NotImplementedError`` naming their
+item.
 """
 
 from __future__ import annotations
@@ -21,7 +23,6 @@ from tedm_tpu_torch.utils.device import strict_fp32
 
 DIFFUSION_EXPERIMENTS = ("img_only", "joint", "conditional", "joint_and_cond")
 HEAD_EXPERIMENTS = ("LEDM", "LEDMe", "TEDM")
-CONTRASTIVE_EXPERIMENTS = ("global_cl", "local_cl", "global_finetune", "glob_loc_finetune")
 
 # (flag, is it set, the ROADMAP item that ports its feature)
 NOT_PORTED = (
@@ -36,19 +37,18 @@ NOT_PORTED = (
 
 
 def dispatch(config: Config, device: Union[str, torch.device] = "cuda") -> None:
-    from tedm_tpu_torch.trainers import baseline, datasetdm, diffusion, per_step
+    from tedm_tpu_torch.trainers import baseline, contrastive, datasetdm, diffusion, per_step
 
     mains: Dict[str, Callable[..., None]] = {
         **{e: diffusion.main for e in DIFFUSION_EXPERIMENTS},
         **{e: datasetdm.main for e in HEAD_EXPERIMENTS},
         "baseline": baseline.main,
         "PDDM": per_step.main,
+        "global_cl": contrastive.main_global,
+        "local_cl": contrastive.main_local,
+        "global_finetune": contrastive.main_finetune,
+        "glob_loc_finetune": contrastive.main_finetune,
     }
-    if config.experiment in CONTRASTIVE_EXPERIMENTS:
-        raise NotImplementedError(
-            f"experiment {config.experiment!r} is not ported yet: the contrastive "
-            "trainers are ROADMAP item A.5d"
-        )
     if config.experiment not in mains:
         raise ValueError(f"unknown experiment {config.experiment}")
     if config.grad_accum > 1 and config.experiment not in DIFFUSION_EXPERIMENTS:

@@ -22,14 +22,26 @@ train their head on a frozen backbone, under ``torch.no_grad``; the baseline
 (``trainers/baseline.py``) trains the whole UNet. One step is a forward and
 backward and one Adam (AdamW under ``--weight_decay``) step. Feature noise
 comes from a ``torch.Generator`` on the device, seeded from ``config.seed``,
-or is given. ``freeze_mask`` of the JAX package serves only the contrastive
-finetune (ROADMAP A.5d) and is not ported.
+or is given.
+
+``frozen`` and ``unfreeze_at`` are the JAX package's ``freeze_mask`` (the
+contrastive finetune's, tedm_tpu/trainers/common.py:66-99): until step
+``unfreeze_at`` (steps count from 1) those parameters' gradients are zeroed,
+not dropped, and the optimizer's step leaves them as they were. optax counts
+Adam's steps globally and JAX zeroes the frozen gradients, so the frozen
+moments stay 0 while the count runs on, and the first step after the
+unfreeze is bias-corrected by the global count; with zero gradients torch's
+per-parameter ``step`` runs in lockstep (a gradient of ``None`` would stop
+it, and the first step after the unfreeze would come out 0.64 to about 3
+times JAX's). JAX also masks the update, since AdamW's decoupled decay
+would shrink a frozen parameter: here the frozen parameters are put back
+after the step.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, Iterable, List, Tuple, Union
+from typing import Any, Callable, Dict, Iterable, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -102,20 +114,31 @@ def _fold(task, y: torch.Tensor, valid: torch.Tensor) -> Tuple[torch.Tensor, tor
     return y, valid
 
 
-def make_train_step(task, optimizer: torch.optim.Optimizer):
+def make_train_step(task, optimizer: torch.optim.Optimizer, frozen: Sequence[torch.nn.Parameter] = ()):
     """One training step of ``task``'s trained module: ``step(x, y, valid,
-    generator=None, noise=None) -> (loss, per_fold)``, device scalars; the
-    noise is as in ``SegTask.apply``. ``per_fold`` is the masked mean loss
-    of each folded timestep (TEDM per-timestep logging, reference:
-    train_baseline.py:56-58,70-73)."""
+    generator=None, noise=None, freeze=False) -> (loss, per_fold)``, device
+    scalars; the noise is as in ``SegTask.apply``. ``per_fold`` is the masked
+    mean loss of each folded timestep (TEDM per-timestep logging, reference:
+    train_baseline.py:56-58,70-73). With ``freeze`` the ``frozen`` parameters
+    get zero gradients and keep their values (module docstring)."""
+    frozen = list(frozen)
 
-    def step(x, y, valid, generator=None, noise=None):
+    def step(x, y, valid, generator=None, noise=None, freeze=False):
         task.trained.train()
         logits = task.apply(x, generator=generator, noise=noise)
         per_img, loss = masked_bce_per_image(logits, *_fold(task, y, valid))
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        optimizer.step()
+        if freeze and frozen:
+            with torch.no_grad():
+                held = [p for p in frozen if p.grad is not None]
+                torch._foreach_zero_([p.grad for p in held])
+                kept = [p.detach().clone() for p in held]
+            optimizer.step()
+            with torch.no_grad():
+                torch._foreach_copy_([p.detach() for p in held], kept)
+        else:
+            optimizer.step()
         w = valid.float()
         per_fold = (per_img.detach().reshape(task.fold, -1) * w).sum(dim=1) / w.sum().clamp(min=1.0)
         return loss.detach(), per_fold
@@ -168,14 +191,23 @@ def validate(config: Config, task, loader, generator: torch.Generator) -> Dict[s
     }
 
 
-def train_segmentation(config: Config, task, loaders: Dict[str, Any], logger: MetricsLogger) -> None:
+def train_segmentation(
+    config: Config,
+    task,
+    loaders: Dict[str, Any],
+    logger: MetricsLogger,
+    frozen: Sequence[torch.nn.Parameter] = (),
+    unfreeze_at: int = 0,
+) -> None:
     """The shared loop over ``task`` on its trained module's device.
     Checkpoints hold the state_dict of each of ``task.modules`` under its key
     (a head's ``{"backbone", "classifier"}``, the baseline's ``{"unet"}``),
-    ``opt_state`` and ``step``; ``--resume_path`` restores them."""
+    ``opt_state`` and ``step``; ``--resume_path`` restores them. The
+    ``frozen`` parameters stay as they are in the steps before
+    ``unfreeze_at`` (module docstring)."""
     dev = next(task.trained.parameters()).device
     optimizer = make_optimizer(config, task.trained.parameters())
-    train_step = make_train_step(task, optimizer)
+    train_step = make_train_step(task, optimizer, frozen)
     step = 0
     if config.resume_path and checkpoint_exists(config.resume_path):
         state, _ = load_checkpoint(config.resume_path, config, map_location=dev)
@@ -200,7 +232,7 @@ def train_segmentation(config: Config, task, loaders: Dict[str, Any], logger: Me
             step += 1
             loss, per_fold = train_step(
                 to_nchw(batch["image"], dev), to_nchw(batch["mask"], dev),
-                torch.from_numpy(batch["valid"]).to(dev), generator=generator,
+                torch.from_numpy(batch["valid"]).to(dev), generator=generator, freeze=step < unfreeze_at,
             )
             # device scalars: reading them here would wait for the card every step
             train_losses.append(loss)

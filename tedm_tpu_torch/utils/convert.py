@@ -3,14 +3,16 @@
 Turns ``tedm_tpu`` parameter trees, given as nested dicts of numpy arrays,
 into ``state_dict``s of the port's modules: the inverse of
 ``convert_unet_state_dict``, ``convert_classifier_state_dict`` and
-``classifier_batch_stats`` in ``tedm_tpu/utils/torch_port.py``, and PDDM's
-``LinearProbe``. ``task_state_dicts`` turns a JAX task's parameters into the
-state_dicts a port checkpoint holds. Pure numpy; the results load with
+``classifier_batch_stats`` in ``tedm_tpu/utils/torch_port.py``, PDDM's
+``LinearProbe``, and the contrastive models ``GlobalCL`` and ``LocalCL``.
+``task_state_dicts`` turns a JAX task's parameters into the state_dicts a
+port checkpoint holds. Pure numpy; the results load with
 ``load_numpy_state_dict``.
 
 Layout transforms (JAX -> torch):
   Conv kernel   (kh, kw, in, out) -> (out, in, kh, kw)
   Dense kernel  (in, out)         -> (out, in)
+  GlobalCL g1_fc1 (H*W*C, out)    -> (out, C*H*W)
   Probe kernel  (c_in, out)       -> (out, c_in, 1, 1)
   ChanLayerNorm g (C,)            -> (1, C, 1, 1)
   GroupNorm scale/bias            -> weight/bias
@@ -75,17 +77,21 @@ def _prenorm_attn(p: Mapping, prefix: str, linear: bool) -> Dict[str, np.ndarray
 
 
 def unet_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """``tedm_tpu.models.unet.Unet`` params -> the port's ``Unet`` state_dict."""
-    n_stages = sum(1 for k in params if k.startswith("downs_") and k.endswith("_0"))
+    """``tedm_tpu.models.unet.Unet`` params -> the port's ``Unet`` state_dict.
+    A partial tree, as a contrastive model's ``unet`` subtree initialises
+    lazily (no time MLPs, the decoder only as far as it runs, no final
+    block; tedm_tpu/models/unet.py:199-204), gives the keys it has."""
     sd: Dict[str, np.ndarray] = {}
     sd.update(_conv_pair(params["init_conv"], "init_conv"))
-    tm = params["time_mlp"]
-    sd["time_mlp.1.weight"] = _dense(tm["fc1"]["kernel"])
-    sd["time_mlp.1.bias"] = _vec(tm["fc1"]["bias"])
-    sd["time_mlp.3.weight"] = _dense(tm["fc2"]["kernel"])
-    sd["time_mlp.3.bias"] = _vec(tm["fc2"]["bias"])
+    if "time_mlp" in params:
+        tm = params["time_mlp"]
+        sd["time_mlp.1.weight"] = _dense(tm["fc1"]["kernel"])
+        sd["time_mlp.1.bias"] = _vec(tm["fc1"]["bias"])
+        sd["time_mlp.3.weight"] = _dense(tm["fc2"]["kernel"])
+        sd["time_mlp.3.bias"] = _vec(tm["fc2"]["bias"])
     for side in ("downs", "ups"):
-        for i in range(n_stages):
+        i = 0
+        while f"{side}_{i}_0" in params:
             sd.update(_resnet_block(params[f"{side}_{i}_0"], f"{side}.{i}.0"))
             sd.update(_resnet_block(params[f"{side}_{i}_1"], f"{side}.{i}.1"))
             sd.update(_prenorm_attn(params[f"{side}_{i}_2"], f"{side}.{i}.2", linear=True))
@@ -94,12 +100,48 @@ def unet_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
                 sd.update(_conv_pair(last["conv"], f"{side}.{i}.3" + (".1" if side == "ups" else "")))
             else:  # the last stage's plain 3x3 conv
                 sd.update(_conv_pair(last, f"{side}.{i}.3"))
+            i += 1
     sd.update(_resnet_block(params["mid_block1"], "mid_block1"))
     sd.update(_prenorm_attn(params["mid_attn"], "mid_attn", linear=False))
     sd.update(_resnet_block(params["mid_block2"], "mid_block2"))
-    sd.update(_resnet_block(params["final_res_block"], "final_res_block"))
-    sd.update(_conv_pair(params["final_conv"], "final_conv"))
+    if "final_res_block" in params:
+        sd.update(_resnet_block(params["final_res_block"], "final_res_block"))
+        sd.update(_conv_pair(params["final_conv"], "final_conv"))
     return sd
+
+
+def _prefixed(prefix: str, sd: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    return {f"{prefix}.{k}": v for k, v in sd.items()}
+
+
+def global_cl_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """``tedm_tpu.models.contrastive.GlobalCL`` params -> the port's
+    ``GlobalCL`` state_dict. ``g1_fc1``'s kernel rows are in NHWC flatten
+    order, (H, W, C); they are permuted to the port's (C, H, W)."""
+    sd = _prefixed("unet", unet_state_dict(params["unet"]))
+    c = np.shape(params["unet"]["mid_block2"]["block2"]["proj"]["kernel"])[-1]
+    w1 = np.asarray(params["g1_fc1"]["kernel"], np.float32)  # (H*W*C, emb)
+    side = int(round((w1.shape[0] // c) ** 0.5))
+    w1 = w1.reshape(side, side, c, -1).transpose(2, 0, 1, 3).reshape(c * side * side, -1)
+    sd["g1_fc1.weight"] = np.ascontiguousarray(w1.T)
+    sd["g1_fc2.weight"] = _dense(params["g1_fc2"]["kernel"])
+    return sd
+
+
+def local_cl_state_dict(params: Mapping[str, Any], batch_stats: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """``tedm_tpu.models.contrastive.LocalCL`` params and batch_stats -> the
+    port's ``LocalCL`` state_dict."""
+    sd = _prefixed("unet", unet_state_dict(params["unet"]))
+    sd["g2_conv1.weight"] = _conv(params["g2_conv1"]["kernel"])
+    sd["g2_conv2.weight"] = _conv(params["g2_conv2"]["kernel"])
+    sd.update(_batch_norm(params["g2_bn"], batch_stats["g2_bn"], "g2_bn"))
+    return sd
+
+
+def _batch_norm(p: Mapping, stats: Mapping, prefix: str) -> Dict[str, np.ndarray]:
+    return {f"{prefix}.weight": _vec(p["scale"]), f"{prefix}.bias": _vec(p["bias"]),
+            f"{prefix}.running_mean": _vec(stats["mean"]), f"{prefix}.running_var": _vec(stats["var"]),
+            f"{prefix}.num_batches_tracked": np.array(0, np.int64)}
 
 
 def classifier_state_dict(
@@ -117,11 +159,7 @@ def classifier_state_dict(
     sd.update(_conv_pair(params["conv2"], f"{o + 3}"))
     sd.update(_conv_pair(params["conv3"], f"{o + 6}"))
     for name, idx in (("bn1", o + 2), ("bn2", o + 5)):
-        sd[f"{idx}.weight"] = _vec(params[name]["scale"])
-        sd[f"{idx}.bias"] = _vec(params[name]["bias"])
-        sd[f"{idx}.running_mean"] = _vec(batch_stats[name]["mean"])
-        sd[f"{idx}.running_var"] = _vec(batch_stats[name]["var"])
-        sd[f"{idx}.num_batches_tracked"] = np.array(0, np.int64)
+        sd.update(_batch_norm(params[name], batch_stats[name], str(idx)))
     return sd
 
 

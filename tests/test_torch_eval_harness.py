@@ -9,9 +9,9 @@ the last batch padded) with the feature noise JAX draws, read from its own
 the same keys and shapes, y_hat agrees to 2e-4, the metrics of the same
 y_hat are equal, and ``print_metrics`` prints the same text. Also: the test
 loaders against JAX's, ``testing_shared_weights`` after ``train.main`` for
-TEDM (one file a timestep and set, ``{}`` once done), the refusal of the
-conditional experiment's eval (ROADMAP A.5e), and a tiny run of
-``scripts/port/quality_r5.py`` on the CPU.
+TEDM (one file a timestep and set, ``{}`` once done), the conditional
+experiment's eval by its sampling chain (no longer refused), and a tiny
+run of ``scripts/port/quality_r5.py`` on the CPU.
 """
 
 import json
@@ -141,10 +141,16 @@ def test_tedm_main_then_testing_shared_weights(tmp_path, capsys):
 
 
 def test_conditional_eval_names_its_roadmap_item(tmp_path):
-    cfg = Config(**SMALL, experiment="conditional", log_dir=str(tmp_path / "run"))
-    save_checkpoint(str(tmp_path / "run" / "best"), {}, cfg)
-    with pytest.raises(NotImplementedError, match="A.5e"):
-        run_tests.evaluate_experiment(str(tmp_path / "run"), device="cpu")
+    """The conditional experiment was refused as ROADMAP A.5e; it is now
+    evaluated by DDIM under its config's ``ddim_steps``, one npz a set."""
+    from tedm_tpu_torch.trainers.diffusion import build_model
+
+    cfg = Config(**dict(SMALL, dim=8, img_size=16), experiment="conditional", timesteps=20, ddim_steps=2,
+                 log_dir=str(tmp_path / "run"))
+    save_checkpoint(str(tmp_path / "run" / "best"), {"params": build_model(cfg).state_dict()}, cfg)
+    out = run_tests.evaluate_experiment(str(tmp_path / "run"), device="cpu")
+    assert sorted(out) == sorted(harness.DATASET_KEYS)
+    assert out["NIH"]["y_hat"].shape == (100, 16, 16, 1)
 
 
 def test_quality_r5_runs_its_chain_on_the_cpu(tmp_path):

@@ -200,8 +200,9 @@ def test_main_trains_validates_resumes_and_feeds_the_backbone(tmp_path):
 @pytest.mark.parametrize(
     "extra,exc,match",
     [
-        (["--experiment", "global_finetune"], NotImplementedError, "A.5d"),
-        (["--experiment", "local_cl"], NotImplementedError, "A.5d"),
+        # the contrastive arms are dispatched, to the card by default
+        (["--experiment", "global_finetune"], RuntimeError, "CUDA is not available"),
+        (["--experiment", "local_cl"], RuntimeError, "CUDA is not available"),
         (["--experiment", "TEDM", "--grad_accum", "2"], ValueError, "grad_accum"),
         (["--remat"], NotImplementedError, "--remat .*A.5"),
         (["--profile_dir", "p"], NotImplementedError, "--profile_dir .*A.5"),
