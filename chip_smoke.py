@@ -109,6 +109,23 @@ Phases, each of which exits non-zero on failure:
      linear-attention launches a UNet call), and one DDIM and one
      DPM-Solver++(2M) trajectory of one image on the card against the CPU
      plain path from the same x_T;
+ 17. the rest of serving and the training tooling: phase 4's weights served
+     under ``--no_pallas`` in fp32 and bf16 (no B.1 or B.2 launch, within
+     the path gates of the default path); Predictor's CUDA graphs for fp32
+     and bf16, default and resblock + flash, against eager requests (host
+     latency, busy share under torch.profiler, a replay's kernel calls
+     counted from its trace, probabilities equal), and peak memory with 4
+     graphed models in one Predictor; phase 4's TEDM checkpoint exported
+     (``serve/export.py``) in fp32 and bf16, and phase 12's bf16 resblock +
+     flash one, each called twice in a fresh process (equal to Predictor's
+     folded rows, one UNet call's launches, no weight laid out by the second
+     call); exported samplers (DDIM and the ancestral step on phase 5's
+     backbone, the ancestral step on phase 9's bf16 one, DPM++ on phase
+     16's) against the eager loops, with the same counts of launches and
+     layouts; ``--remat`` path (a) runs and one
+     step against the step without it, in fp32 and with resblock + flash;
+     a ``--profile_dir`` run whose trace holds B.1 and B.1b; the grid
+     (``predict``) over phases 14-15's checkpoints, cold and warm;
 then one JSON line listing every kernel and the final JSON status line.
 """
 
@@ -266,6 +283,7 @@ def profile(label: str, fn) -> list:
         fail("the profiler saw no device time")
     print(f"profile of {label}: {sum(e.count for e in kernels)} kernel launches, device busy "
           f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall ({100 * busy_ms / wall_ms:.1f} %)")
+    profile.last = {"launches": sum(e.count for e in kernels), "busy_ms": busy_ms, "wall_ms": wall_ms}
     by_kind = dict.fromkeys([k for k, _ in KERNEL_KINDS] + ["other"], 0.0)
     for e in kernels:
         name = e.key.lower()
@@ -1049,10 +1067,12 @@ def per_unet_call(mixed: bool, flags=(), backward: bool = False) -> dict:
     """Launches of one UNet forward (and backward) of the path: 8 linear
     attentions (fp32) or fused blocks (bf16), and the opt-in kernels its
     flags switch on (the ResnetBlock's backward in a backward too);
-    ResnetBlock wins over GroupNorm."""
+    ResnetBlock wins over GroupNorm; ``--no_pallas`` takes the first two off."""
     counts = {"prenorm_linear_attention": 8} if mixed else {"linear_attention": 8}
     if backward and not mixed:
         counts["linear_attention_backward"] = 8
+    if "--no_pallas" in flags:
+        counts = {}
     if "--use_pallas_resblock" in flags:
         counts[RB] = 19
         if backward:
@@ -1066,6 +1086,17 @@ def per_unet_call(mixed: bool, flags=(), backward: bool = False) -> dict:
 
 def label_of(mixed: bool, flags=()) -> str:
     return " ".join(["bf16"] * mixed + list(flags)) + (" " if mixed or flags else "")
+
+
+def flag_fields(flags=()) -> dict:
+    """The config fields of the kernel flags."""
+    return {"use_pallas": False} if "--no_pallas" in flags else {f[2:]: True for f in flags}
+
+
+def serve_logs(tmp, mixed: bool = False, flags=()) -> str:
+    """The logs root of a serving phase's checkpoint (phases 4, 8, 12, 17)."""
+    name = "_".join(["serve"] + ["bf16"] * mixed + [f.lstrip("-").replace("use_pallas_", "") for f in flags])
+    return os.path.join(tmp, name, "logs")
 
 
 # ------------------------------------------------------------------ paths
@@ -1084,6 +1115,17 @@ def random_tedm(tmp):
     return {"backbone": task.unet.state_dict(), "classifier": task.classifier.state_dict()}, cfg
 
 
+def eager_predictor(logs):
+    """A ``Predictor`` on the card whose every request runs eagerly, as the
+    CPU serves (``serve.app.eager_sigmoids``): eager latencies, and host
+    launch counters, which a graph replay does not move."""
+    from tedm_tpu_torch.serve import app
+
+    predictor = app.Predictor(logs_root=logs, device="cuda")
+    predictor._sigmoids = lambda ckpt_dir, task, x, noise: app.eager_sigmoids(task, x, noise)
+    return predictor
+
+
 def serve(tmp, mixed: bool, flags=(), flag_off=None):
     """Phases 4, 8 and 12: the serving path. fp32 without flags: a TEDM model
     with random weights from the seed, saved and served; otherwise the same
@@ -1095,19 +1137,17 @@ def serve(tmp, mixed: bool, flags=(), flag_off=None):
     from tedm_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
     label = label_of(mixed, flags)
-    logs32 = os.path.join(tmp, "serve", "logs")
+    logs = serve_logs(tmp, mixed, flags)
     if mixed or flags:
-        state, cfg = load_checkpoint(os.path.join(logs32, "TEDM", "1", "best"), verbose=False)
-        cfg = cfg.replace(mixed_precision=mixed, **{f[2:]: True for f in flags})
-        logs = os.path.join(tmp, "serve_" + "_".join(["bf16"] * mixed + [f[13:] for f in flags]), "logs")
+        state, cfg = load_checkpoint(os.path.join(serve_logs(tmp), "TEDM", "1", "best"), verbose=False)
+        cfg = cfg.replace(mixed_precision=mixed, **flag_fields(flags))
     else:
         state, cfg = random_tedm(tmp)
-        logs = logs32
     save_checkpoint(os.path.join(logs, "TEDM", "1", "best"), state, cfg)
     del state
     rs = np.random.RandomState(SEED)
     imgs = [rs.rand(1, cfg.img_size, cfg.img_size, 1).astype(np.float32) for _ in range(N_REQUESTS)]
-    predictor = Predictor(logs_root=logs, device="cuda")
+    predictor = eager_predictor(logs)  # phase 17 measures the graphs
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -1337,7 +1377,6 @@ def train_head(tmp, backbone, mixed: bool, flags=(), steps: int = B_STEPS):
     ``mixed``; with the opt-in ``flags``. Returns the launches of its
     training run."""
     from tedm_tpu_torch.config import config_from_args
-    from tedm_tpu_torch.serve.app import Predictor
     from tedm_tpu_torch.train import main as train_main
 
     label = f"{label_of(mixed, flags)}path (b)"
@@ -1369,7 +1408,7 @@ def train_head(tmp, backbone, mixed: bool, flags=(), steps: int = B_STEPS):
     if not all(math.isfinite(v) for v in val[0].values()):
         fail(f"{label}: val metrics {val[0]}")
 
-    mask = Predictor(logs_root=logs, device="cuda").predict(
+    mask = eager_predictor(logs).predict(
         np.random.RandomState(SEED).rand(1, cfg.img_size, cfg.img_size, 1).astype(np.float32), "TEDM", 1)
     if mask.shape != (cfg.img_size, cfg.img_size) or not set(np.unique(mask)) <= {0.0, 1.0}:
         fail(f"{label}: served mask of shape {mask.shape}")
@@ -1696,7 +1735,7 @@ def cl_predictor(logs, size):
     from tedm_tpu_torch.serve.app import Predictor
 
     img = np.random.RandomState(SEED).rand(1, 128, 128, 1).astype(np.float32)
-    predictor = Predictor(logs_root=logs, device="cuda")
+    predictor = eager_predictor(logs)
     predictor.predict(img, "Global & Local CL", size)  # the first request loads the checkpoint
     reset_launches()
     t0 = time.perf_counter()
@@ -1839,6 +1878,449 @@ def conditional_chain(tmp, root):
         if not (torch.isfinite(out["cuda"]).all() and gaps[name] <= SAMPLER_TOL):
             fail(f"the {name} trajectory on the card disagrees with the CPU plain path: {gaps[name]}")
     report["trajectory_max_abs_err"] = gaps
+    return runs, report, cfg.log_dir
+
+
+# ------------------------------------------------------------------ phase 17
+
+GRAPH_TOL = 1e-6             # graphed and exported probabilities against eager ones (bitwise expected)
+GRAPH_REQUESTS = 6           # requests a predictor: the first eager (the graph's warm-up, then its capture)
+REMAT_STEPS = 4              # path (a) steps of each --remat run
+PROFILE_STEPS = 16           # path (a) steps of the --profile_dir run (steps 10-15 traced)
+EXPORT_STEPS = 4             # steps of the exported DDIM and DPM++ samplers
+ANCESTRAL_GRID = 10          # the trajectory's last steps that the exported ancestral step runs
+RF = ("--use_pallas_resblock", "--use_pallas_flash")
+# the kernels of which each call launches ``per``, by short name: a call's mark in a trace
+CALL_MARKS = {"linear_attention": (("la_cluster", "context_chunks"), 1), "linear_attention_backward": (("grad_q",), 1),
+              "prenorm_linear_attention": (("apply_block",), 1), GN: (("gn_cluster", "gn_apply"), 1),
+              RB: (("gn_coefs",), 2), RBB: (("gn_bwd_coefs",), 2), FA: (("flash_row", "flash_fwd"), 1)}
+OPS = {"linear_attention": "tedm_tpu_torch::linear_attention",
+       "prenorm_linear_attention": "tedm_tpu_torch::prenorm_linear_attention",
+       GN: "tedm_tpu_torch::group_norm_film_silu", RB: "tedm_tpu_torch::resnet_block",
+       FA: "tedm_tpu_torch::cosine_attention"}
+
+
+def calls_in_trace(kernels) -> dict:
+    """Each kernel's calls among the device kernels of a trace (full names),
+    counted by the kernels that mark a call: what ran on the card, graphed
+    or not, whatever the host counters say."""
+    names = collections.Counter(short_name(k) for k in kernels)
+    return launches(**{k: sum(names[n] for n in marks) // per for k, (marks, per) in CALL_MARKS.items()})
+
+
+def no_pallas_serving(tmp, served, served16):
+    """``--no_pallas``: phase 4's weights served in fp32 and bf16 under the
+    flag (``serve``: no B.1 or B.2 launch a request, the card against the
+    CPU), the probabilities within the path gate of the default path's."""
+    runs, report = [], {}
+    for mixed, ref in ((False, served), (True, served16)):
+        run = serve(tmp, mixed, ("--no_pallas",), flag_off=ref)
+        diff = float(np.abs(run["probs"] - ref["probs"]).max())
+        tol = BF16_PATH_TOL if mixed else PATH_TOL
+        label = label_of(mixed, ("--no_pallas",))
+        print(f"{label}request {run['latency_ms']:.3f} ms against the default path's {ref['latency_ms']:.3f} ms; "
+              f"probabilities max_abs_diff {diff:.3e} (tol {tol})", flush=True)
+        if not diff <= tol:
+            fail(f"{label}probabilities differ from the default path's by {diff}")
+        report[label.strip()] = {"latency_ms": run["latency_ms"], "default_latency_ms": ref["latency_ms"],
+                                 "max_abs_diff": diff}
+        runs.append((f"{label}serving", run["launches"]))
+    return runs, report
+
+
+def graphed_serving(tmp):
+    """CUDA-graph replay in Predictor, for fp32 and bf16, default and
+    resblock + flash (phases 4, 8 and 12's checkpoints): host latency of
+    ``GRAPH_REQUESTS`` requests, graphed against eager; the busy share of
+    one request of each under torch.profiler; a replay's kernel calls
+    counted from its trace (``calls_in_trace``) equal to a UNet call's; the
+    graphed probabilities of the folded rows equal to the eager ones, with
+    the NOISE_SEED draw and with caller noise; then peak memory with the 4
+    models' graphs in one Predictor (one shared pool)."""
+    import gc
+
+    from tedm_tpu_torch.serve.app import Predictor
+
+    rs = np.random.RandomState(SEED + 17)
+    imgs = [rs.rand(1, 128, 128, 1).astype(np.float32) for _ in range(GRAPH_REQUESTS)]
+    noise = rs.randn(1, 128, 128, 1).astype(np.float32)
+    runs, report = [], {}
+    for mixed, flags in ((False, ()), (True, ()), (False, RF), (True, RF)):
+        label = label_of(mixed, flags)
+        logs = serve_logs(tmp, mixed, flags)
+        per = per_unet_call(mixed, flags)
+        row = {}
+        predictors = {"eager": eager_predictor(logs), "graphed": Predictor(logs, "cuda")}
+        for name, pred in predictors.items():
+            reset_launches()
+            times = []
+            for img in imgs:
+                t0 = time.perf_counter()
+                pred.predict(img, "TEDM", 1)  # host numpy: synchronised
+                times.append(1e3 * (time.perf_counter() - t0))
+            counts = read_launches()
+            # host counters: every eager request; the graph's warm-up and capture, no replay
+            want = {k: v * (GRAPH_REQUESTS if name == "eager" else 2) for k, v in per.items()}
+            if counts != want:
+                fail(f"{label}{name} requests: host launches {counts}, expected {want}")
+            if name == "eager":
+                runs.append((f"{label}serving (phase 17, eager)", counts))
+            profile(f"one {name} {label}request", lambda: pred.predict(imgs[0], "TEDM", 1))
+            # the kernels of one request, from a session of several (one session can lose an event)
+            calls = calls_in_trace(n for n, _ in call_launches(f"{name} {label}request",
+                                                                lambda: pred.predict(imgs[0], "TEDM", 1), calls=4))
+            if calls != per:
+                fail(f"one {name} {label}request ran the kernels' calls {calls} on the card, expected {per}")
+            row[name] = {"latency_ms": times, "median_ms": statistics.median(times[1:]), **profile.last}
+        eager, graphed = predictors["eager"], predictors["graphed"]
+        if not graphed._graphs:
+            fail(f"{label}Predictor captured no graph")
+        gaps = {}
+        for what, kw in (("NOISE_SEED draw", {}), ("caller noise", {"noise": noise})):
+            pe = eager._probabilities(imgs[1], "TEDM", 1, mean=False, **kw)
+            pg = graphed._probabilities(imgs[1], "TEDM", 1, mean=False, **kw)
+            gaps[what] = float(np.abs(pg - pe).max())
+            if pg.shape != (8, 128, 128, 1) or not gaps[what] <= GRAPH_TOL:
+                fail(f"{label}graphed probabilities ({what}) differ from eager ones by {gaps[what]}")
+        row["graphed_vs_eager_max_abs"] = gaps
+        print(f"{label}requests, median of 2-{GRAPH_REQUESTS}: graphed {row['graphed']['median_ms']:.3f} ms "
+              f"(device busy {row['graphed']['busy_ms']:.3f} of {row['graphed']['wall_ms']:.3f} ms) against eager "
+              f"{row['eager']['median_ms']:.3f} ms (busy {row['eager']['busy_ms']:.3f} of {row['eager']['wall_ms']:.3f}); "
+              f"a replay's calls on the card {({k: v for k, v in per.items() if v})}; graphed vs eager {gaps}",
+              flush=True)
+        report[label.strip() or "fp32"] = row
+        del predictors, eager, graphed, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the 4 models' graphs in one predictor: TEDM sizes 1, 3, 6, 12 are the 4 checkpoints
+    root = os.path.join(tmp, "graphs", "logs")
+    for size, (mixed, flags) in zip((1, 3, 6, 12), ((False, ()), (True, ()), (False, RF), (True, RF))):
+        os.makedirs(os.path.join(root, "TEDM"), exist_ok=True)
+        os.symlink(os.path.join(serve_logs(tmp, mixed, flags), "TEDM", "1"), os.path.join(root, "TEDM", str(size)))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pred = Predictor(root, "cuda")
+    for size in (1, 3, 6, 12):
+        for img in imgs[:2]:
+            pred.predict(img, "TEDM", size)
+    peak, held = torch.cuda.max_memory_allocated() - before, torch.cuda.memory_allocated() - before
+    print(f"4 graphed models in one Predictor (one pool): peak device memory {peak} bytes ({peak / 2**30:.3f} GiB) "
+          f"above the {before / 2**30:.3f} GiB held before, {held / 2**30:.3f} GiB held after", flush=True)
+    if len(pred._graphs) != 4:
+        fail(f"the predictor holds {len(pred._graphs)} graphs, expected 4")
+    report["four_graphed_models"] = {"peak_bytes": peak, "held_bytes": held}
+    del pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs, report
+
+
+EXPORTED_CALL = """
+import json, sys
+import numpy as np
+import torch
+from tedm_tpu_torch.serve.export import load_exported
+
+kernels = {"linear_attention": "linear_attention", "prenorm_linear_attention": "attn_block",
+           "fused_group_norm_film_silu": "groupnorm", "fused_resnet_block": "resblock",
+           "flash_cosine_attention": "flash_attention"}
+layouts = ("prenorm_linear_attention", "fused_resnet_block")  # the kernels that lay weights out
+wrapper = lambda k: getattr(sys.modules.get("tedm_tpu_torch.kernels." + kernels[k]), k, None)
+built = lambda: {k: getattr(wrapper(k), "layouts_built", 0) for k in layouts}
+x = np.load(sys.argv[1])
+for path, y_path in zip(sys.argv[2::2], sys.argv[3::2]):
+    call = load_exported(path)
+    before = built()
+    call(x)  # the first call lays the baked weights out for the kernels
+    first = built()
+    for k in kernels:
+        if wrapper(k) is not None:
+            wrapper(k).launches = 0
+    np.save(y_path, call(x))
+    second = built()
+    print(json.dumps({"launches": {k: 0 if wrapper(k) is None else wrapper(k).launches for k in kernels},
+                      "layouts_first": {k: first[k] - before[k] for k in layouts},
+                      "layouts_second": {k: second[k] - first[k] for k in layouts}}), flush=True)
+"""
+EXPORTED = ((False, ()), (True, ()), (True, RF))  # phase 4's, 8's and 12's TEDM checkpoints
+
+
+def export_predictors(tmp):
+    """``export_predictor`` of phase 4's TEDM checkpoint in fp32 and bf16,
+    and of phase 12's bf16 resblock + flash one, then one fresh process,
+    started here and left running, that imports only torch and
+    ``tedm_tpu_torch.serve.export`` and loads and calls each twice. Returns
+    what ``check_exported_predictors`` reads."""
+    from tedm_tpu_torch.serve.export import export_predictor
+
+    img = np.random.RandomState(SEED + 18).rand(1, 128, 128, 1).astype(np.float32)
+    x_path = os.path.join(tmp, "export_x.npy")
+    np.save(x_path, img.transpose(0, 3, 1, 2))
+    rows, args = [], []
+    for mixed, flags in EXPORTED:
+        logs = serve_logs(tmp, mixed, flags)
+        path = os.path.join(tmp, f"tedm_{label_of(mixed, flags).strip().replace(' ', '_') or 'fp32'}.pt2")
+        t0 = time.perf_counter()
+        size = export_predictor(os.path.join(logs, "TEDM", "1"), path, device="cuda")
+        export_s = time.perf_counter() - t0
+        want = eager_predictor(logs)._probabilities(img, "TEDM", 1, mean=False)
+        rows.append((mixed, flags, size, export_s, want, path + ".y.npy"))
+        args += [path, path + ".y.npy"]
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+    proc = subprocess.Popen([sys.executable, "-c", EXPORTED_CALL, x_path, *args], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env)
+    return rows, proc, time.perf_counter()
+
+
+def check_exported_predictors(rows, proc, started):
+    """The fresh process's outputs equal ``Predictor._probabilities`` before
+    the mean; the second call of each launched the kernels of one UNet call
+    (host counters of that process) and laid no weight out: the first call
+    of a loaded program lays out its baked weights (B.2's fragments, B.4's
+    tiles), once."""
+    out, err = proc.communicate()
+    process_s = time.perf_counter() - started
+    if proc.returncode != 0:
+        fail(f"the exported predictors failed in a fresh process:\n{err[-3000:]}")
+    lines = [json.loads(line) for line in out.strip().splitlines()[-len(rows):]]
+    runs, report = [], {}
+    for (mixed, flags, size, export_s, want, y_path), line in zip(rows, lines):
+        label = label_of(mixed, flags)
+        counts, first, second = line["launches"], line["layouts_first"], line["layouts_second"]
+        got = np.load(y_path).transpose(0, 2, 3, 1)
+        gap = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+        expected = {k: v for k, v in per_unet_call(mixed, flags).items() if k in counts}
+        print(f"exported {label}predictor: {size} bytes, exported in {export_s:.1f} s; called in a fresh process "
+              f"(the artifacts loaded and called twice in {process_s:.1f} s, beside the sampler exports): output "
+              f"{got.shape} against Predictor's folded rows: max_abs_err {gap:.3e} (tol {GRAPH_TOL}); launches of "
+              f"its second call {counts}; weight layouts built by the first call {first}, by the second {second}",
+              flush=True)
+        if not gap <= GRAPH_TOL or counts != expected:
+            fail(f"exported {label}predictor: max_abs_err {gap}, launches {counts}, expected {expected}")
+        if any(second.values()) or any(bool(first[k]) != bool(counts[k]) for k in first):
+            fail(f"exported {label}predictor: weight layouts built {first} by the first call and {second} by the "
+                 f"second; expected some by the first for each kernel that launched, none by the second")
+        report[f"{label}predictor".strip()] = {"bytes": size, "export_s": export_s, "max_abs_err": gap,
+                                               "layouts_first_call": first}
+        runs.append((f"exported {label}predictor (fresh process)", launches(**counts)))
+    report["fresh_process_s"] = process_s
+    return runs, report
+
+
+def layouts_built() -> dict:
+    """How many weight layouts B.2 and B.4 have built in this process."""
+    from tedm_tpu_torch.kernels import attn_block, resblock
+
+    return {"prenorm_linear_attention": attn_block.prenorm_linear_attention.layouts_built,
+            RB: resblock.fused_resnet_block.layouts_built}
+
+
+def exported_samplers(tmp, backbone_dir, backbone16_dir, cond_dir):
+    """``export_sampler`` for phase 5's img_only backbone (DDIM, and the
+    ancestral step over the trajectory's last ``ANCESTRAL_GRID`` steps),
+    phase 9's bf16 one (the ancestral step) and phase 16's conditional
+    backbone (DPM++), each called twice: the second call against the eager
+    loop from the same noise at ``SAMPLER_TOL``, its kernel launches
+    counted, and no weight laid out again after the first."""
+    from tedm_tpu_torch.eval.harness import load_diffusion_experiment
+    from tedm_tpu_torch.models import diffusion as D
+    from tedm_tpu_torch.serve.export import export_sampler, load_exported
+
+    runs, report = [], {}
+    rs = np.random.RandomState(SEED + 19)
+    for run, sampler in ((backbone_dir, "ddim"), (backbone_dir, "ancestral"), (backbone16_dir, "ancestral"),
+                         (cond_dir, "dpmpp")):
+        config, unet, sched = load_diffusion_experiment(run, "cuda")
+        label = f"{label_of(config.mixed_precision)}{sampler}"
+        path = os.path.join(tmp, f"sampler_{label.replace(' ', '_')}.pt2")
+        t0 = time.perf_counter()
+        size = export_sampler(run, path, sampler=sampler, num_steps=EXPORT_STEPS, device="cuda")
+        export_s = time.perf_counter() - t0
+        call = load_exported(path)
+        x_T = torch.from_numpy(rs.randn(1, 1, 128, 128).astype(np.float32)).cuda()
+        cond = None
+        if config.experiment == "conditional":
+            cond = torch.from_numpy(rs.rand(1, 1, 128, 128).astype(np.float32) * 2 - 1).cuda()
+        apply = unet if cond is None else (lambda x, t: unet(torch.cat([x, cond], dim=1), t))
+        kw = dict(objective=config.objective, dynamic_threshold_percentile=config.dynamic_threshold_percentile)
+        extra = () if cond is None else (cond,)
+        with torch.inference_mode():
+            if sampler == "ancestral":
+                grid = list(range(ANCESTRAL_GRID - 1, -1, -1))
+                noises = torch.from_numpy(rs.randn(ANCESTRAL_GRID, 1, 1, 128, 128).astype(np.float32)).cuda()
+                x, calls = x_T, ANCESTRAL_GRID
+                for i, t in enumerate(grid):
+                    x = D.sample_step(apply, sched, x, torch.full((1,), t, device="cuda"), noise=noises[i], **kw)
+                run_program = lambda: call(x_T, noises, *extra, grid=grid)
+            else:
+                loop = D.ddim_sample_loop if sampler == "ddim" else D.dpmpp2m_sample_loop
+                x, calls = loop(apply, sched, x_T.shape, num_steps=EXPORT_STEPS, x_T=x_T, **kw), EXPORT_STEPS
+                run_program = lambda: call(x_T, *extra)
+            before = layouts_built()
+            run_program()  # the first call lays the baked weights out
+            first = layouts_built()
+            reset_launches()
+            got = run_program()
+            counts, second = read_launches(), layouts_built()
+            want = D.unnormalize_to_zero_to_one(x.clamp(-1.0, 1.0)).cpu().numpy()
+        first = {k: v - before[k] for k, v in first.items()}
+        second = {k: v - first[k] - before[k] for k, v in second.items()}
+        err = float(np.abs(got - want).max())
+        expected = {k: v * calls for k, v in per_unet_call(config.mixed_precision).items()}
+        print(f"exported {label} sampler of the {config.experiment} backbone: {size} bytes, exported in "
+              f"{export_s:.1f} s; against the eager loop from the same noise ({calls} UNet calls): max_abs_err "
+              f"{err:.3e} (tol {SAMPLER_TOL}); launches {({k: v for k, v in counts.items() if v})}; weight layouts "
+              f"built by the first call {first}, by the second {second}", flush=True)
+        if not err <= SAMPLER_TOL or counts != expected:
+            fail(f"exported {label} sampler: max_abs_err {err}, launches {counts}, expected {expected}")
+        if any(second.values()) or any(bool(first[k]) != bool(counts[k]) for k in first):
+            fail(f"exported {label} sampler: weight layouts built {first} by the first call and {second} by the "
+                 f"second; expected some by the first for each kernel that launched, none by the second")
+        report[f"{config.experiment} {label}"] = {"bytes": size, "export_s": export_s, "max_abs_err": err,
+                                                  "unet_calls": calls, "layouts_first_call": first}
+        runs.append((f"exported {label} sampler", counts))
+    return runs, report
+
+
+def serve_grid(tmp):
+    """``predict``, the grid, over phases 14-15's checkpoints: Baseline,
+    TEDM and PDDM at n = 1, and Baseline and the two CL finetunes at n =
+    197, with ``seg_img`` off and on; its shape, and its seconds cold (the
+    checkpoints loaded and the graphs captured) and warm."""
+    from tedm_tpu_torch.serve.app import Predictor, predict
+
+    img = (np.random.RandomState(SEED + 20).rand(160, 150) * 255).astype(np.uint8)
+    predictor = Predictor(os.path.join(tmp, "eval_logs"), "cuda")
+    report = {}
+    for models, sizes in ((["TEDM", "PDDM", "Baseline"], [1]), (["Global & Local CL", "Baseline", "Global CL"], [197])):
+        times = {}
+        for what, seg in (("cold", False), ("warm", False), ("warm, seg_img", True)):
+            t0 = time.perf_counter()
+            grid = predict(img, models, sizes, seg, predictor=predictor)
+            times[what] = time.perf_counter() - t0
+            if grid.shape != (128 * len(models), 330, 3) or not np.isfinite(grid).all():
+                fail(f"the grid of {models} x {sizes} has shape {grid.shape}")
+        print(f"grid of {models} x {sizes}: {grid.shape}; seconds {({k: round(v, 3) for k, v in times.items()})}",
+              flush=True)
+        report[f"{'+'.join(models)} x {sizes}"] = times
+    return report
+
+
+def remat_runs(tmp):
+    """``--remat``: path (a) steps in fp32, and with resblock + flash, with
+    the flag and without it, through train.main (every block's forward runs
+    twice a step: 16 B.1 and, with the flag, 2 x 19 B.4 a step); step time
+    and peak memory of each; then one batch-16 step of each against the
+    step without the flag on the same weights, t and noise, at the step
+    gates."""
+    from tedm_tpu_torch.config import config_from_args
+    from tedm_tpu_torch.ops.schedules import make_schedule
+    from tedm_tpu_torch.train import main as train_main
+    from tedm_tpu_torch.trainers import diffusion as TD
+    from tedm_tpu_torch.trainers.common import make_optimizer
+
+    runs, report = [], {}
+    for flags in ((), RF):
+        for remat in (False, True):
+            label = f"{label_of(False, flags)}path (a){' --remat' if remat else ''}"
+            argv = ["--experiment", "img_only", "--synthetic_data", "--max_steps", str(REMAT_STEPS), "--val_freq",
+                    str(100 * REMAT_STEPS), "--log_freq", "1", "--seed", str(SEED),
+                    "--log_dir", os.path.join(tmp, "remat", label.replace(" ", "_")), *flags]
+            argv += ["--remat"] if remat else []
+            cfg = config_from_args(argv)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            train_main(argv, device="cuda")
+            torch.cuda.synchronize()
+            counts, peak = read_launches(), torch.cuda.max_memory_allocated()
+            steps = [r for r in read_metrics(cfg.log_dir) if "train/loss" in r]
+            median = statistics.median(1e3 * cfg.batch_size / r["train/imgs_per_sec"] for r in steps[1:])
+            per = per_unet_call(False, flags, backward=True)
+            want = {k: REMAT_STEPS * v * (2 if remat and k in (
+                "linear_attention", RB, FA) else 1) for k, v in per.items()}
+            print(f"{label}: {len(steps)} steps at batch {cfg.batch_size}, median of steps 2-{len(steps)} "
+                  f"{median:.3f} ms; peak device memory {peak} bytes ({peak / 2**30:.3f} GiB); launches "
+                  f"{({k: v for k, v in counts.items() if v})}", flush=True)
+            if len(steps) != REMAT_STEPS or counts != want:
+                fail(f"{label}: {len(steps)} steps, launches {counts}, expected {want}")
+            report[label] = {"step_ms": median, "peak_bytes": peak}
+            runs.append((f"{label_of(False, flags)}training (a){' --remat' if remat else ''}", counts))
+        # one step with the flag against one without, from the same weights, batch, t and noise
+        out = []
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        x = torch.rand(16, 1, 128, 128, generator=gen, device="cuda")
+        t = torch.randint(0, 1000, (16,), generator=gen, device="cuda")
+        noise = torch.randn(16, 1, 128, 128, generator=gen, device="cuda")
+        for remat in (False, True):
+            cfg = config_from_args(["--experiment", "img_only", "--seed", str(SEED), *flags] + ["--remat"] * remat)
+            unet = TD.build_model(cfg).cuda()
+            steps = TD.make_steps(cfg, unet, make_schedule(cfg.timesteps, cfg.beta_schedule).to("cuda"),
+                                  make_optimizer(cfg, unet.parameters()))
+            loss, _ = steps.train_step(x, torch.zeros(1, device="cuda"), torch.ones(16, device="cuda"), t=t, noise=noise)
+            out.append((float(loss), [p.grad for p in unet.parameters()]))
+        loss_err = abs(out[1][0] - out[0][0]) / abs(out[0][0])
+        grad_err = max(rel_err(a, b) for a, b in zip(out[1][1], out[0][1]))
+        print(f"{label_of(False, flags)}--remat step against the step without it: loss {loss_err:.3e} relative "
+              f"(tol {STEP_LOSS_TOL}), gradients {grad_err:.3e} of each largest entry (tol {STEP_GRAD_TOL})", flush=True)
+        if not (loss_err <= STEP_LOSS_TOL and grad_err <= STEP_GRAD_TOL):
+            fail(f"{label_of(False, flags)}--remat step: loss {loss_err}, gradients {grad_err}")
+        report[f"{label_of(False, flags)}step vs --remat"] = {"loss_rel": loss_err, "grad_rel": grad_err}
+        del out, unet, steps
+    return runs, report
+
+
+def profile_dir_run(tmp):
+    """``--profile_dir``: a ``PROFILE_STEPS``-step path (a) run through
+    train.main writes one trace of steps 10-15, and the trace holds the
+    kernels of B.1 and B.1b."""
+    from tedm_tpu_torch.train import main as train_main
+
+    prof = os.path.join(tmp, "profile_dir")
+    argv = ["--experiment", "img_only", "--synthetic_data", "--max_steps", str(PROFILE_STEPS), "--val_freq",
+            str(100 * PROFILE_STEPS), "--log_freq", "4", "--seed", str(SEED),
+            "--log_dir", os.path.join(tmp, "profile_run"), "--profile_dir", prof]
+    reset_launches()
+    t0 = time.perf_counter()
+    train_main(argv, device="cuda")
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    files = [os.path.join(d, f) for d, _, fs in os.walk(prof) for f in fs if f.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        fail(f"--profile_dir wrote {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    calls = calls_in_trace(kernels)
+    b1, b1b = calls["linear_attention"], calls["linear_attention_backward"]
+    size = os.path.getsize(files[0])
+    print(f"--profile_dir: {PROFILE_STEPS} steps in {wall:.1f} s; trace {size} bytes, {len(kernels)} kernel "
+          f"events, B.1 calls {b1}, B.1b calls {b1b} (6 steps: {6 * 8} each)", flush=True)
+    # a profiler session can lose its first device event (torch.profiler on an H100)
+    if not (6 * 8 - 1 <= b1 <= 6 * 8 and 6 * 8 - 1 <= b1b <= 6 * 8):
+        fail(f"the --profile_dir trace holds {b1} B.1 and {b1b} B.1b calls, expected {6 * 8}")
+    return [("training (a) --profile_dir", counts)], {"trace_bytes": size, "kernel_events": len(kernels),
+                                                     "seconds": wall}
+
+
+def phase_17(tmp, served, served16, backbone_dir, backbone16, cond_dir):
+    """Phase 17. Returns the runs' launches by path and the measurements.
+    ``backbone16`` is phase 9's last checkpoint, served as a run's best."""
+    runs, report = [], {}
+    backbone16_dir = os.path.join(tmp, "bf16_backbone")
+    os.makedirs(backbone16_dir)
+    os.symlink(os.path.abspath(backbone16), os.path.join(backbone16_dir, "best"))
+    parts = [("no_pallas", no_pallas_serving(tmp, served, served16)), ("graphs", graphed_serving(tmp))]
+    exported = export_predictors(tmp)  # their fresh process runs beside the sampler exports
+    parts += [("exported_samplers", exported_samplers(tmp, backbone_dir, backbone16_dir, cond_dir)),
+              ("exported_predictor", check_exported_predictors(*exported)),
+              ("remat", remat_runs(tmp)), ("profile_dir", profile_dir_run(tmp))]
+    for name, (r, rep) in parts:
+        runs += r
+        report[name] = rep
+    report["grid"] = serve_grid(tmp)
     return runs, report
 
 
@@ -1931,11 +2413,13 @@ def main() -> None:
         with Phase("15. contrastive arms: pretraining, finetunes, eval, serving"):
             cl_runs, cl_report = contrastive_arms(tmp, root)
         with Phase("16. samplers and the conditional eval"):
-            cond_runs, cond_report = conditional_chain(tmp, root)
+            cond_runs, cond_report, cond_dir = conditional_chain(tmp, root)
+        with Phase("17. --no_pallas, CUDA graphs, export, the grid, --remat, --profile_dir"):
+            runs17, report17 = phase_17(tmp, served, served16, os.path.dirname(backbone), backbone16, cond_dir)
 
     paths = add_paths(("serving", served["launches"]), ("training (a)", a32), ("training (b)", b32),
                       ("bf16 serving", served16["launches"]), ("bf16 training (a)", a16),
-                      ("bf16 training (b)", b16), *opt_in, *evals, *cl_runs, *cond_runs)
+                      ("bf16 training (b)", b16), *opt_in, *evals, *cl_runs, *cond_runs, *runs17)
     bounded = lambda rows: "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations"
     gn_req = [(s, torch.float32, f) for s, f in gn_calls(8)]
     rb_req = [(s, torch.float32) for s in rb_shapes(8)]
@@ -2040,9 +2524,11 @@ def main() -> None:
               per_launch=fa_launches),
     ]
     for kern in kernels:
+        kern["op"] = OPS.get(kern["name"])  # its torch.library op; a backward is none
         if kern["launches"] == 0:
             fail(f"{kern['name']} was never launched on the main path")
-    print(json.dumps({"kernels": kernels, "phase_14": eval_report, "phase_15": cl_report, "phase_16": cond_report}))
+    print(json.dumps({"kernels": kernels, "phase_14": eval_report, "phase_15": cl_report, "phase_16": cond_report,
+                      "phase_17": report17}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -2,8 +2,11 @@
 
 The fields, defaults, JSON form and presets are identical to the JAX
 package's, so a ``config.json`` written by either package loads unchanged in
-the other. Fields that only the JAX package reads (mesh, sharding, Pallas
-switches) are kept as plain keys for that reason; the port ignores them.
+the other. Fields that only the JAX package reads (mesh, sharding,
+``attn_layout``) are kept as plain keys for that reason; the port ignores
+them. The kernel switches map to the port's kernels: ``use_pallas`` (off
+under ``--no_pallas``) to the linear-attention kernels B.1 and B.2,
+``use_pallas_{groupnorm,resblock,flash}`` to the opt-in B.3, B.4 and B.5.
 
 It mirrors the reference's global argparse parser (reference:
 config.py:13-84) and the post-parse experiment presets applied by its
@@ -167,8 +170,11 @@ class Config:
     use_pallas_flash: bool = False        # flash-cosine mid attention (opt-in:
                                           # loses to XLA einsum for N<=4096,
                                           # i.e. every img_size <= 512)
-    attn_layout: str = "heads_major"      # linear-attention einsum layout
-                                          # ('heads_major' | 'nhwc'; measured equal on v5e)
+    attn_layout: str = "heads_major"      # linear-attention einsum layout of JAX's plain
+                                          # path ('heads_major' | 'nhwc'; measured equal on
+                                          # v5e); the port reads it nowhere: both orders
+                                          # compute the same values, and its plain path
+                                          # (--no_pallas) has one einsum order
     synthetic_data: bool = False          # deterministic synthetic CXR data (no image files needed)
     data_backend: str = "threads"         # input pipeline: 'threads' | 'grain'
                                           # | 'device' (synthetic generated
@@ -411,7 +417,8 @@ def build_parser() -> argparse.ArgumentParser:
                    "(opt-in; measured slower than XLA for img_size <= 512)")
     p.add_argument("--attn_layout", type=str, default=defaults.attn_layout,
                    choices=["heads_major", "nhwc"],
-                   help="linear-attention einsum layout (measured equal on v5e)")
+                   help="linear-attention einsum layout of the JAX package's plain path "
+                   "(measured equal on v5e); the port computes the same values under either")
     p.add_argument("--synthetic_data", action="store_true")
     p.add_argument("--data_backend", type=str, default=defaults.data_backend,
                    choices=["threads", "grain", "device"],

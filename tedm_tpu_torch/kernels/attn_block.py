@@ -36,7 +36,7 @@ import ctypes
 import functools
 import torch
 
-from tedm_tpu_torch.kernels import _build, layouts
+from tedm_tpu_torch.kernels import _build, layouts, ops
 
 HEADS, DIM_HEAD = 4, 32  # the kernel's compiled head layout, the UNet's only one
 SCALE = DIM_HEAD ** -0.5
@@ -174,7 +174,7 @@ class _PreNormLinearAttentionCUDA(torch.autograd.Function):
     def forward(ctx, x, g_in, w_qkv, w_out, b_out, g_out):
         # x and the weights only, as the JAX _block_fwd keeps them
         ctx.save_for_backward(x, g_in, w_qkv, w_out, b_out, g_out)
-        return _forward(x, g_in, w_qkv, w_out, b_out, g_out)
+        return ops.prenorm_linear_attention(x, g_in, w_qkv, w_out, b_out, g_out)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -201,13 +201,17 @@ def prenorm_linear_attention(
     batch element) go through the kernel, counted in
     ``prenorm_linear_attention.launches``; its backward recomputes the plain
     version and launches nothing. CPU tensors go through
-    ``prenorm_linear_attention_reference``.
+    ``prenorm_linear_attention_reference``. A call that autograd does not
+    record is one call of the ``ops.prenorm_linear_attention`` op.
     """
-    if x.device.type == "cpu":
-        return prenorm_linear_attention_reference(x, g_in, w_qkv, w_out, b_out, g_out)
-    if x.device.type != "cuda":
+    args = (x, g_in, w_qkv, w_out, b_out, g_out)
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"prenorm_linear_attention runs on cuda or cpu tensors, got {x.device}")
-    return _PreNormLinearAttentionCUDA.apply(x, g_in, w_qkv, w_out, b_out, g_out)
+    if not ops.needs_grad(*args):
+        return ops.prenorm_linear_attention(*args)
+    if x.device.type == "cpu":
+        return prenorm_linear_attention_reference(*args)
+    return _PreNormLinearAttentionCUDA.apply(*args)
 
 
 prenorm_linear_attention.launches = 0

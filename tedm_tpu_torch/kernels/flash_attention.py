@@ -28,7 +28,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from tedm_tpu_torch.kernels import _build
+from tedm_tpu_torch.kernels import _build, ops
 
 D_HEAD = 32  # the kernel's compiled head width
 
@@ -102,7 +102,7 @@ class _FlashCosineAttentionCUDA(torch.autograd.Function):
         # q, k, v are views of the qkv conv output, which stays alive anyway
         ctx.save_for_backward(q, k, v)
         ctx.scale = scale
-        return _forward(q, k, v, scale)
+        return ops.cosine_attention(q, k, v, scale)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -125,12 +125,15 @@ def flash_cosine_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sc
     CUDA tensors (fp32 or bf16, d=32, contiguous within each batch element)
     go through the kernels, counted in ``flash_cosine_attention.launches``;
     the backward recomputes the plain version and launches nothing. CPU
-    tensors go through ``cosine_attention_reference``.
+    tensors go through ``cosine_attention_reference``. A call that autograd
+    does not record is one call of the ``ops.cosine_attention`` op.
     """
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_cosine_attention runs on cuda or cpu tensors, got {q.device}")
+    if not ops.needs_grad(q, k, v):
+        return ops.cosine_attention(q, k, v, float(scale))
     if q.device.type == "cpu":
         return cosine_attention_reference(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_cosine_attention runs on cuda or cpu tensors, got {q.device}")
     return _FlashCosineAttentionCUDA.apply(q, k, v, float(scale))
 
 

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from tedm_tpu_torch.kernels import _build
+from tedm_tpu_torch.kernels import _build, ops
 
 Stats = Tuple[torch.Tensor, torch.Tensor]
 
@@ -286,7 +286,7 @@ class _GroupNormFilmSiLUCUDA(torch.autograd.Function):
     def forward(ctx, x, gamma, beta, scale, shift, groups, eps):
         ctx.save_for_backward(x, gamma, beta, scale, shift)
         ctx.groups, ctx.eps = groups, eps
-        return _forward(x, gamma, beta, scale, shift, groups, eps)
+        return ops.group_norm_film_silu(x, gamma, beta, scale, shift, groups, eps)
 
     @staticmethod
     @once_differentiable
@@ -312,12 +312,15 @@ def fused_group_norm_film_silu(
     multiple of ``groups``) go through the kernel on ``gn_route``'s route,
     counted in ``fused_group_norm_film_silu.launches``; its backward is the plain
     analytic VJP and launches nothing. CPU tensors go through
-    ``group_norm_film_silu_reference``.
+    ``group_norm_film_silu_reference``. A call that autograd does not record
+    is one call of the ``ops.group_norm_film_silu`` op.
     """
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_group_norm_film_silu runs on cuda or cpu tensors, got {x.device}")
+    if not ops.needs_grad(x, gamma, beta, scale, shift):
+        return ops.group_norm_film_silu(x, gamma, beta, scale, shift, groups, float(eps))
     if x.device.type == "cpu":
         return group_norm_film_silu_reference(x, gamma, beta, scale, shift, groups, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_group_norm_film_silu runs on cuda or cpu tensors, got {x.device}")
     return _GroupNormFilmSiLUCUDA.apply(x, gamma, beta, scale, shift, groups, float(eps))
 
 

@@ -19,7 +19,8 @@ kernel folds shares of the columns into online-softmax partials, merges them
 in order and applies the context; the backward kernel runs as two passes,
 one over q and g and one over k and v. ``linear_attention_forward_passes``
 and ``linear_attention_backward_passes`` are their plain versions, pass by
-pass, for the tests.
+pass, for the tests. The forward is the ``tedm_tpu_torch::linear_attention``
+op (``kernels/ops.py``).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from typing import Dict, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from tedm_tpu_torch.kernels import _build
+from tedm_tpu_torch.kernels import _build, ops
 from tedm_tpu_torch.kernels.tf32 import split_matmul, tf32_split
 
 D_HEAD = 32  # the kernel's compiled head width
@@ -375,7 +376,7 @@ def _backward(
 class _LinearAttentionCUDA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale):
-        out, c, stats = _forward(q, k, v, scale)
+        out, c, stats = ops.linear_attention(q, k, v, scale)
         # the context and softmax_N statistics are B*h*(d*d + 2*d) floats;
         # q, k, v are views of the qkv conv output, which stays alive anyway
         ctx.save_for_backward(q, k, v, c, stats)
@@ -397,12 +398,15 @@ def linear_attention(
     CUDA tensors (float32, d=32, contiguous within each batch element) go
     through the kernels, counted in ``linear_attention.launches`` (forward)
     and ``linear_attention.backward_launches`` (backward); CPU tensors
-    through ``linear_attention_reference``.
+    through ``linear_attention_reference``. A call that autograd does not
+    record is one call of the ``ops.linear_attention`` op.
     """
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"linear_attention runs on cuda or cpu tensors, got {q.device}")
+    if not ops.needs_grad(q, k, v):
+        return ops.linear_attention(q, k, v, float(scale))[0]
     if q.device.type == "cpu":
         return linear_attention_reference(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"linear_attention runs on cuda or cpu tensors, got {q.device}")
     return _LinearAttentionCUDA.apply(q, k, v, float(scale))
 
 

@@ -18,7 +18,9 @@ kernels of ``csrc/resblock_backward.cu``, the convolutions' gradients by
 one convolution backward each in the compute dtype, as XLA runs JAX's
 transposes (``resnet_block_backward_reference`` is its plain version). On
 a CPU tensor it runs ``resnet_block_reference``, differentiated by
-autograd.
+autograd. The forward is the ``tedm_tpu_torch::resnet_block`` op
+(``kernels/ops.py``), whose CPU implementation is
+``resnet_block_forward_reference``.
 
 Weights come in the port's layout: ``w1`` (Cout, Cin, 3, 3), ``w2`` (Cout,
 Cout, 3, 3), ``wres`` (Cout, Cin, 1, 1) or None, biases and GroupNorm
@@ -45,7 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from tedm_tpu_torch.kernels import _build, layouts
+from tedm_tpu_torch.kernels import _build, layouts, ops
 from tedm_tpu_torch.kernels.tf32 import tf32_round, tf32_split  # noqa: F401 (tf32_round: the tests read it here)
 from tedm_tpu_torch.kernels.groupnorm import (
     check_activation, film_rows, group_norm_film_silu_backward_reference, group_norm_film_silu_reference,
@@ -71,9 +73,41 @@ def resnet_block_reference(
     instead of 0."""
     args = (x, w1, b1, g1, be1, scale, shift, w2, b2, g2, be2, wres, bres)
     h1, h2 = resnet_block_saved_reference(*args, groups=groups, eps=eps, pad_after_norm=pad_after_norm)
+    return _block_output(x, h2, g2, be2, wres, bres, groups, eps)
+
+
+def _block_output(x, h2, g2, be2, wres, bres, groups, eps) -> torch.Tensor:
+    """GN2 + SiLU of the fp32 h2 plus the residual, summed in fp32 and cast once."""
     h = group_norm_film_silu_reference(h2, g2, be2, None, None, groups, eps)
     res = x.float() if wres is None else F.conv2d(_rounded(x, x.dtype), _rounded(wres, x.dtype)) + _col(bres)
     return (h + res).to(x.dtype)
+
+
+def resnet_block_forward_reference(
+    x, w1, b1, g1, be1, scale, shift, w2, b2, g2, be2, wres=None, bres=None,
+    groups: int = 8, eps: float = 1e-5,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of what the kernel's forward returns: the block's output
+    (``resnet_block_reference``'s, contiguous) and the fp32 buffer it keeps
+    for the backward, in the layout ``saved_views`` reads: GN1's and GN2's
+    affines (a, b) with GN(h) * gamma, FiLM and shift folded into h * a + b
+    (``gn::film_affine``), their group statistics (mean, rstd), then h1
+    and h2."""
+    args = (x, w1, b1, g1, be1, scale, shift, w2, b2, g2, be2, wres, bres)
+    h1, h2 = resnet_block_saved_reference(*args, groups=groups, eps=eps)
+    b, c = h1.shape[:2]
+    coefs, stats = [], []
+    for h, gamma, beta, sc, sh in ((h1, g1, be1, scale, shift), (h2, g2, be2, None, None)):
+        mean, rstd = group_stats(h, groups, eps)  # (B, groups, 1) each
+        m, r = (t.repeat_interleave(c // groups, dim=1) for t in (mean, rstd))
+        gamma, beta = gamma.float().reshape(1, c, 1), beta.float().reshape(1, c, 1)
+        film = 1.0 if sc is None else sc.float().reshape(b, c, 1) + 1.0
+        a = r * gamma * film
+        off = (beta - m * r * gamma) * film + (0.0 if sh is None else sh.float().reshape(b, c, 1))
+        coefs.append(torch.cat([a, off], dim=2))
+        stats.append(torch.cat([mean, rstd], dim=2))
+    saved = torch.cat([t.reshape(-1) for t in (*coefs, *stats, h1, h2)])
+    return _block_output(x, h2, g2, be2, wres, bres, groups, eps).contiguous(), saved
 
 
 def _rounded(t: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
@@ -380,7 +414,7 @@ def _backward(x, w1, b1, g1, be1, scale, shift, w2, b2, g2, be2, wres, bres, sav
 class _ResnetBlockCUDA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1, b1, g1, be1, scale, shift, w2, b2, g2, be2, wres, bres, groups, eps):
-        out, saved = _forward(x, w1, b1, g1, be1, scale, shift, w2, b2, g2, be2, wres, bres, groups, eps)
+        out, saved = ops.resnet_block(x, w1, b1, g1, be1, scale, shift, w2, b2, g2, be2, wres, bres, groups, eps)
         if any(ctx.needs_input_grad):  # training: keep h1, h2 and the GroupNorms' statistics
             ctx.save_for_backward(x, w1, b1, g1, be1, scale, shift, w2, b2, g2, be2, wres, bres, saved)
             ctx.groups = groups
@@ -408,13 +442,16 @@ def fused_resnet_block(
     ``fused_resnet_block.launches``; their backward, from the fp32 h1 and
     h2 the forward keeps, through the backward kernels, counted in
     ``fused_resnet_block.backward_launches``. CPU tensors go through
-    ``resnet_block_reference``, differentiated by autograd.
+    ``resnet_block_reference``, differentiated by autograd. A call that
+    autograd does not record is one call of the ``ops.resnet_block`` op.
     """
     args = (x, w1, b1, g1, be1, scale, shift, w2, b2, g2, be2, wres, bres)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_resnet_block runs on cuda or cpu tensors, got {x.device}")
+    if not ops.needs_grad(*args):
+        return ops.resnet_block(*args, groups, float(eps))[0]
     if x.device.type == "cpu":
         return resnet_block_reference(*args, groups=groups, eps=eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_resnet_block runs on cuda or cpu tensors, got {x.device}")
     return _ResnetBlockCUDA.apply(*args, groups, float(eps))
 
 

@@ -26,7 +26,7 @@ promotes to fp32 in PyTorch as in JAX.
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Tuple, Union
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -229,6 +229,32 @@ def step_grid(num_timesteps: int, n: int) -> List[int]:
     return grid.round().long().flip(0).tolist()
 
 
+class DDIMStep(NamedTuple):
+    """One DDIM step: from t to t_prev (-1: the clean state), with
+    x <- c_x0 x_0 + c_dir eps (+ sigma noise)."""
+
+    t: int
+    t_prev: int
+    c_x0: float
+    c_dir: float
+    sigma: float
+
+
+def ddim_coefficients(sched: DiffusionSchedule, num_steps: int, eta: float = 0.0) -> List[DDIMStep]:
+    """The steps of ``ddim_sample_loop``, their coefficients computed in fp32
+    on the host from the schedule, in the JAX package's order."""
+    T = sched.num_timesteps
+    ts = step_grid(T, num_steps)
+    ts_prev = ts[1:] + [-1]
+    a_bar = sched.alphas_cumprod.float().cpu()
+    a_t = a_bar[ts]
+    a_prev = torch.where(torch.tensor(ts_prev) >= 0, a_bar[[max(t, 0) for t in ts_prev]], torch.ones(()))
+    sigma = eta * torch.sqrt((1 - a_prev) / (1 - a_t)) * torch.sqrt(1 - a_t / a_prev)
+    c_dir = torch.sqrt(torch.clamp(1.0 - a_prev - sigma ** 2, min=0.0)).tolist()
+    c_x0 = torch.sqrt(a_prev).tolist()
+    return [DDIMStep(*step) for step in zip(ts, ts_prev, c_x0, c_dir, sigma.tolist())]
+
+
 @torch.no_grad()
 def ddim_sample_loop(
     apply_fn: ApplyFn,
@@ -242,36 +268,68 @@ def ddim_sample_loop(
     dtype: torch.dtype = torch.float32,
     x_T: Optional[torch.Tensor] = None,
     noises: Optional[Sequence[torch.Tensor]] = None,
+    coefficients: Optional[Sequence[DDIMStep]] = None,
 ) -> torch.Tensor:
     """DDIM (Song et al. 2021) over ``num_steps`` of the T-step schedule
     (tedm_tpu/models/diffusion.py:241-284), from ``x_T`` ~ N(0, 1), with
     ``noises[i]`` the noise of step i (drawn from ``generator`` when not
     given; none is drawn at ``eta`` 0, where it is multiplied by 0). Each
     step's x_0 is dynamically thresholded and the noise recomputed from it;
-    the last step lands on x_0 (t_prev = -1). Returns the sample in [-1, 1]."""
-    T = sched.num_timesteps
-    ts = step_grid(T, num_steps)
-    ts_prev = ts[1:] + [-1]
-    a_bar = sched.alphas_cumprod.float().cpu()
-    a_t = a_bar[ts]
-    a_prev = torch.where(torch.tensor(ts_prev) >= 0, a_bar[[max(t, 0) for t in ts_prev]], torch.ones(()))
-    sigma = eta * torch.sqrt((1 - a_prev) / (1 - a_t)) * torch.sqrt(1 - a_t / a_prev)
-    c_dir = torch.sqrt(torch.clamp(1.0 - a_prev - sigma ** 2, min=0.0)).tolist()
-    c_x0 = torch.sqrt(a_prev).tolist()
-    sigma = sigma.tolist()
+    the last step lands on x_0 (t_prev = -1). ``coefficients``: the steps of
+    ``ddim_coefficients(sched, num_steps, eta)``, given by a caller that
+    traces the loop (a traced program cannot read the schedule on the host).
+    Returns the sample in [-1, 1]."""
+    steps = coefficients if coefficients is not None else ddim_coefficients(sched, num_steps, eta)
     dev = sched.alphas_cumprod.device
     x = x_T if x_T is not None else torch.randn(shape, generator=generator, device=dev, dtype=dtype)
-    for i, t in enumerate(ts):
+    for i, (t, t_prev, c_x0, c_dir, sigma) in enumerate(steps):
         tb = torch.full((shape[0],), t, dtype=torch.long, device=dev)
         _, x_0 = model_predictions(apply_fn, sched, x, tb, objective)
         x_0 = dynamic_threshold(x_0, dynamic_threshold_percentile)
         pred_noise = predict_noise_from_x0(sched, x, tb, x_0)
-        x_new = c_x0[i] * x_0 + c_dir[i] * pred_noise
-        if sigma[i] != 0.0 and ts_prev[i] >= 0:
+        x_new = c_x0 * x_0 + c_dir * pred_noise
+        if sigma != 0.0 and t_prev >= 0:
             noise = noises[i] if noises is not None else _randn(shape, x, generator)
-            x_new = x_new + sigma[i] * noise
+            x_new = x_new + sigma * noise
         x = x_new.to(dtype)
     return x
+
+
+class DPMStep(NamedTuple):
+    """One DPM-Solver++(2M) step from t_from: D = d_x0 x0 - d_prev x0_prev
+    (``None``: D = x0, the first step), then x <- c_x x + c_d D."""
+
+    t_from: int
+    d: Optional[Tuple[float, float]]
+    c_x: float
+    c_d: float
+
+
+def dpmpp2m_coefficients(sched: DiffusionSchedule, num_steps: int) -> List[DPMStep]:
+    """The steps of ``dpmpp2m_sample_loop``, their coefficients computed on
+    the host from the schedule, in the JAX package's order."""
+    T = sched.num_timesteps
+    ts = step_grid(T, num_steps + 1)
+    a_bar = sched.alphas_cumprod.float().cpu()
+    alpha = torch.sqrt(a_bar)
+    sig = torch.sqrt(1.0 - a_bar)
+    lam = torch.log(alpha) - torch.log(sig)
+    steps = []
+    lam_prev_prev = lam[ts[0]]
+    for i, (t_from, t_to) in enumerate(zip(ts[:-1], ts[1:])):
+        l_from, l_to = lam[t_from], lam[t_to]
+        h = l_to - l_from
+        d = None
+        if i > 0:
+            r = (l_from - lam_prev_prev) / h
+            d = (float(1.0 + 1.0 / (2.0 * r)), float(1.0 / (2.0 * r)))
+        if t_to == 0:
+            c_x, c_d = 0.0, 1.0
+        else:
+            c_x, c_d = float(sig[t_to] / sig[t_from]), float(-(alpha[t_to] * (torch.exp(-h) - 1.0)))
+        steps.append(DPMStep(t_from, d, c_x, c_d))
+        lam_prev_prev = l_from
+    return steps
 
 
 @torch.no_grad()
@@ -285,6 +343,7 @@ def dpmpp2m_sample_loop(
     dynamic_threshold_percentile: float = 0.995,
     dtype: torch.dtype = torch.float32,
     x_T: Optional[torch.Tensor] = None,
+    coefficients: Optional[Sequence[DPMStep]] = None,
 ) -> torch.Tensor:
     """DPM-Solver++(2M) (Lu et al. 2022; tedm_tpu/models/diffusion.py:287-351):
     deterministic second-order multistep sampling in log-SNR time with the
@@ -296,34 +355,20 @@ def dpmpp2m_sample_loop(
         x <- (sigma_i / sigma_{i-1}) x - alpha_i (exp(-h_i) - 1) D
 
     The last step goes to the clean state (sigma 0, alpha 1, exp(-h) 0), as
-    DDIM's t_prev = -1. Returns the sample in [-1, 1]."""
-    T = sched.num_timesteps
-    ts = step_grid(T, num_steps + 1)
-    a_bar = sched.alphas_cumprod.float().cpu()
-    alpha = torch.sqrt(a_bar)
-    sig = torch.sqrt(1.0 - a_bar)
-    lam = torch.log(alpha) - torch.log(sig)
+    DDIM's t_prev = -1. ``coefficients``: the steps of
+    ``dpmpp2m_coefficients(sched, num_steps)``, given by a caller that
+    traces the loop. Returns the sample in [-1, 1]."""
+    steps = coefficients if coefficients is not None else dpmpp2m_coefficients(sched, num_steps)
     dev = sched.alphas_cumprod.device
     x = x_T if x_T is not None else torch.randn(shape, generator=generator, device=dev, dtype=dtype)
     x0_prev = None
-    lam_prev_prev = lam[ts[0]]
-    for t_from, t_to in zip(ts[:-1], ts[1:]):
+    for t_from, d_coef, c_x, c_d in steps:
         tb = torch.full((shape[0],), t_from, dtype=torch.long, device=dev)
         _, x0 = model_predictions(apply_fn, sched, x, tb, objective)
         x0 = dynamic_threshold(x0, dynamic_threshold_percentile)
-        l_from, l_to = lam[t_from], lam[t_to]
-        h = l_to - l_from
-        if x0_prev is None:
-            d = x0
-        else:
-            r = (l_from - lam_prev_prev) / h
-            d = float(1.0 + 1.0 / (2.0 * r)) * x0 - float(1.0 / (2.0 * r)) * x0_prev
-        if t_to == 0:
-            c_x, c_d = 0.0, 1.0
-        else:
-            c_x, c_d = float(sig[t_to] / sig[t_from]), float(-(alpha[t_to] * (torch.exp(-h) - 1.0)))
+        d = x0 if d_coef is None else d_coef[0] * x0 - d_coef[1] * x0_prev
         x = (c_x * x + c_d * d).to(dtype)
-        x0_prev, lam_prev_prev = x0, l_from
+        x0_prev = x0
     return x
 
 

@@ -15,7 +15,7 @@ builds that (B, S*960, 128, 128) tensor. ``LinearProbe`` is PDDM's head, one
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +25,25 @@ from tedm_tpu_torch.models.diffusion import normalize_to_neg_one_to_one, q_sampl
 from tedm_tpu_torch.models.unet import Unet
 from tedm_tpu_torch.ops.resize import nearest_resize
 from tedm_tpu_torch.ops.schedules import DiffusionSchedule
+
+
+_step_rows: Dict[Tuple[Tuple[int, ...], int, torch.device], torch.Tensor] = {}
+
+
+def step_rows(t_steps: Tuple[int, ...], b: int, device: torch.device) -> torch.Tensor:
+    """The (S*B,) timesteps of a folded batch, step-major, made once per
+    (steps, batch, device) and only read after: a CUDA graph of a request
+    then copies nothing from the host. A plain tensor even under inference
+    mode, so that training may use it too; a tracer's tensor (under
+    ``torch.export``) is not kept."""
+    key = (t_steps, b, device)
+    rows = _step_rows.get(key)
+    if rows is None:
+        with torch.inference_mode(False):
+            rows = torch.tensor(t_steps, dtype=torch.long, device=device).repeat_interleave(b)
+        if type(rows) is torch.Tensor:
+            _step_rows[key] = rows
+    return rows
 
 
 def extract_features(
@@ -50,7 +69,7 @@ def extract_features(
     s = len(t_steps)
     if normalize:
         x_0 = normalize_to_neg_one_to_one(x_0)
-    t_rep = torch.tensor(t_steps, dtype=torch.long, device=x_0.device).repeat_interleave(b)
+    t_rep = step_rows(tuple(t_steps), b, x_0.device)
     x_rep = x_0.repeat(s, 1, 1, 1)
     if noise is not None:
         noise = noise.to(x_0.device, x_0.dtype)

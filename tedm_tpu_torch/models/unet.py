@@ -30,7 +30,11 @@ device its input lies on (the CUDA kernel on the card). In bf16 every
 Residual(PreNorm(LinearAttention)) runs as one block,
 ``kernels.attn_block.prenorm_linear_attention`` (the fused CUDA kernel on
 the card), as the JAX package fuses it in bf16. The mid Attention stays
-plain PyTorch, as the JAX default runs it outside Pallas.
+plain PyTorch, as the JAX default runs it outside Pallas. ``use_pallas=False``
+(``--no_pallas``, JAX's ``Unet.use_pallas``) takes both kernels off the path
+on every device: LinearAttention then runs
+``kernels.linear_attention.linear_attention_reference`` and the bf16 block
+runs unfused, as JAX's plain branches do (tedm_tpu/models/unet.py:370,462).
 
 Three opt-in kernels follow the JAX package's ``use_pallas_*`` switches
 (tedm_tpu/models/unet.py:520-537), with the same parameters, so a
@@ -40,6 +44,14 @@ GroupNorm+FiLM+SiLU through ``kernels.groupnorm.fused_group_norm_film_silu``;
 ``kernels.resblock.fused_resnet_block`` (and then no GroupNorm kernel, as
 JAX's ResnetBlock returns before its Blocks); ``flash_attention`` runs the
 mid Attention through ``kernels.flash_attention.flash_cosine_attention``.
+They are switches apart from ``use_pallas``, as in JAX.
+
+``remat`` (``--remat``) checkpoints each ResnetBlock's and each attention
+block's call (``torch.utils.checkpoint``, non-reentrant) when autograd
+records, as JAX wraps those modules in ``nn.remat``
+(tedm_tpu/models/unet.py:538-560): the backward recomputes one block at a
+time, and the kernels of a recomputed block launch again. The call is
+wrapped, not the module, so the ``state_dict`` keys stay the same.
 """
 
 from __future__ import annotations
@@ -50,11 +62,12 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tedm_tpu_torch.kernels.attn_block import prenorm_linear_attention
 from tedm_tpu_torch.kernels.flash_attention import flash_cosine_attention
 from tedm_tpu_torch.kernels.groupnorm import fused_group_norm_film_silu, group_norm_film_silu_reference
-from tedm_tpu_torch.kernels.linear_attention import linear_attention
+from tedm_tpu_torch.kernels.linear_attention import linear_attention, linear_attention_reference
 from tedm_tpu_torch.kernels.resblock import fused_resnet_block
 from tedm_tpu_torch.ops.resize import nearest_upsample_2x
 
@@ -202,11 +215,13 @@ class ResnetBlock(nn.Module):
 class LinearAttention(nn.Module):
     """O(N) linear attention over spatial positions, q softmaxed over its
     head dim, k over positions (reference: models/unet_model.py:178-210),
-    then to_out = Conv1x1 + ChanLayerNorm."""
+    then to_out = Conv1x1 + ChanLayerNorm. ``use_pallas``: through the
+    kernel, else through its plain version on every device."""
 
-    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, use_pallas: bool = True):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
+        self.use_pallas = use_pallas
         hidden = heads * dim_head
         self.to_qkv = Conv2d(dim, hidden * 3, 1, bias=False)
         self.to_out = nn.Sequential(Conv2d(hidden, dim, 1), ChanLayerNorm(dim))
@@ -219,7 +234,8 @@ class LinearAttention(nn.Module):
             t.reshape(b, self.heads, self.dim_head, h * w)
             for t in self.to_qkv(x).chunk(3, dim=1)
         )
-        out = linear_attention(q, k, v, self.dim_head ** -0.5)
+        attend = linear_attention if self.use_pallas else linear_attention_reference
+        out = attend(q, k, v, self.dim_head ** -0.5)
         return self.to_out(out.reshape(b, -1, h, w).to(x.dtype))
 
 
@@ -268,7 +284,7 @@ class PreNormAttn(nn.Module):
 
     With a LinearAttention in bf16 the whole block is one call of the fused
     block on x, the (B, C, H*W) view (tedm_tpu/models/unet.py:460-475), with
-    the same parameters."""
+    the same parameters, unless the attention's ``use_pallas`` is off."""
 
     compute_dtype = torch.float32
 
@@ -278,7 +294,7 @@ class PreNormAttn(nn.Module):
 
     def forward(self, x):
         attn = self.fn.fn
-        if isinstance(attn, LinearAttention) and self.compute_dtype == torch.bfloat16:
+        if isinstance(attn, LinearAttention) and attn.use_pallas and self.compute_dtype == torch.bfloat16:
             b, c, h, w = x.shape
             to_out, out_norm = attn.to_out
             y = prenorm_linear_attention(
@@ -320,18 +336,24 @@ class Unet(nn.Module):
         fused_groupnorm: bool = False,
         fused_resblock: bool = False,
         flash_attention: bool = False,
+        use_pallas: bool = True,
+        remat: bool = False,
     ):
         """``channels`` is the width of the output (and by default of the
         input); ``in_channels`` widens the input for the conditional modes,
         whose input is the noised x concatenated with the condition.
         ``dtype`` is the compute dtype (bf16 under ``--mixed_precision``).
-        The last three switch on the opt-in kernels (module docstring)."""
+        ``fused_groupnorm``, ``fused_resblock`` and ``flash_attention``
+        switch on the opt-in kernels, ``use_pallas`` (off under
+        ``--no_pallas``) the linear-attention kernels, ``remat`` the block
+        checkpointing (module docstring)."""
         super().__init__()
         dims = [dim] + [dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
         time_dim = dim * 4
         g = resnet_block_groups
         kernels = dict(fused_groupnorm=fused_groupnorm, fused_resblock=fused_resblock)
+        self.remat = remat
 
         self.init_conv = Conv2d(in_channels or channels, dim, 7, padding=3)
         self.time_mlp = TimeMLP(dim, time_dim)
@@ -342,7 +364,7 @@ class Unet(nn.Module):
             self.downs.append(nn.ModuleList([
                 ResnetBlock(dim_in, dim_in, time_dim, g, **kernels),
                 ResnetBlock(dim_in, dim_in, time_dim, g, **kernels),
-                PreNormAttn(dim_in, LinearAttention(dim_in)),
+                PreNormAttn(dim_in, LinearAttention(dim_in, use_pallas=use_pallas)),
                 Downsample(dim_in, dim_out) if not is_last else Conv2d(dim_in, dim_out, 3, padding=1),
             ]))
 
@@ -357,7 +379,7 @@ class Unet(nn.Module):
             self.ups.append(nn.ModuleList([
                 ResnetBlock(dim_out + dim_in, dim_out, time_dim, g, **kernels),
                 ResnetBlock(dim_out + dim_in, dim_out, time_dim, g, **kernels),
-                PreNormAttn(dim_out, LinearAttention(dim_out)),
+                PreNormAttn(dim_out, LinearAttention(dim_out, use_pallas=use_pallas)),
                 Upsample(dim_out, dim_in) if not is_last else Conv2d(dim_out, dim_in, 3, padding=1),
             ]))
 
@@ -369,6 +391,13 @@ class Unet(nn.Module):
             if hasattr(m, "compute_dtype"):
                 m.compute_dtype = dtype
 
+    def block(self, module: nn.Module, *args) -> torch.Tensor:
+        """``module(*args)`` for a ResnetBlock or an attention block,
+        checkpointed under ``remat`` while autograd records."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(module, *args, use_reentrant=False, preserve_rng_state=False)
+        return module(*args)
+
     def encode(
         self, x: torch.Tensor, temb: Optional[torch.Tensor]
     ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor]]:
@@ -377,15 +406,16 @@ class Unet(nn.Module):
         r = x
         hs: List[torch.Tensor] = []
         for block1, block2, attn, downsample in self.downs:
-            x = block1(x, temb)
+            x = self.block(block1, x, temb)
             hs.append(x)
-            x = attn(block2(x, temb))
+            x = self.block(attn, self.block(block2, x, temb))
             hs.append(x)
             x = downsample(x)
         return x, r, hs
 
     def run_mid(self, x: torch.Tensor, temb: Optional[torch.Tensor]) -> torch.Tensor:
-        return self.mid_block2(self.mid_attn(self.mid_block1(x, temb)), temb)
+        x = self.block(self.mid_block1, x, temb)
+        return self.block(self.mid_block2, self.block(self.mid_attn, x), temb)
 
     def decode(
         self,
@@ -403,16 +433,16 @@ class Unet(nn.Module):
         feats: List[torch.Tensor] = []
         stages = self.ups if n_stages is None else self.ups[:n_stages]
         for block1, block2, attn, upsample in stages:
-            x = block1(torch.cat([x, hs.pop()], dim=1), temb)
-            x = block2(torch.cat([x, hs.pop()], dim=1), temb)
-            x = attn(x)
+            x = self.block(block1, torch.cat([x, hs.pop()], dim=1), temb)
+            x = self.block(block2, torch.cat([x, hs.pop()], dim=1), temb)
+            x = self.block(attn, x)
             if collect_features:
                 feats.append(x)
             x = upsample(x)
         return x, feats
 
     def final(self, x: torch.Tensor, r: torch.Tensor, temb: Optional[torch.Tensor]) -> torch.Tensor:
-        return self.final_conv(self.final_res_block(torch.cat([x, r], dim=1), temb))
+        return self.final_conv(self.block(self.final_res_block, torch.cat([x, r], dim=1), temb))
 
     def forward(
         self,

@@ -8,7 +8,7 @@
 The flags are the JAX package's (``tedm_tpu_torch.config.build_parser``).
 Training runs on the card; ``main(argv, device="cpu")`` runs the plain
 PyTorch path on the CPU. The flags whose features the port does not have
-yet (ROADMAP items A.5g and A.5h) raise ``NotImplementedError`` naming their
+yet (ROADMAP item A.5h) raise ``NotImplementedError`` naming their
 item.
 """
 
@@ -26,8 +26,6 @@ HEAD_EXPERIMENTS = ("LEDM", "LEDMe", "TEDM")
 
 # (flag, is it set, the ROADMAP item that ports its feature)
 NOT_PORTED = (
-    ("--remat", lambda c: c.remat, "A.5g"),
-    ("--profile_dir", lambda c: c.profile_dir is not None, "A.5g"),
     ("--multihost", lambda c: c.multihost, "A.5h"),
     ("--mesh_shape", lambda c: bool(c.mesh_shape), "A.5h"),
     ("--param_sharding", lambda c: c.param_sharding != "replicated", "A.5h"),

@@ -9,7 +9,8 @@ validation every val_freq steps with loss, Dice, precision and recall
 (sigmoid > 0.5, nanmean over images); best-val checkpoints; optional early
 stop at 1.5 times the best val loss; ``debug`` runs one step of everything.
 Padding rows of the static-shape batches are masked out of every mean and
-come out of the metrics as NaN.
+come out of the metrics as NaN. ``--profile_dir`` traces steps 10 to 15
+(``utils/profiling.py``), as the JAX loop does.
 
 A task names what the loop trains (``tedm_tpu/trainers/common.py``'s
 ``SegTask``): ``apply(x, generator=None, noise=None)`` maps an image batch to
@@ -51,6 +52,7 @@ from tedm_tpu_torch.ops import metrics as M
 from tedm_tpu_torch.utils.checkpoint import checkpoint_exists, load_checkpoint, save_checkpoint
 from tedm_tpu_torch.utils.interrupt import graceful_shutdown
 from tedm_tpu_torch.utils.logging import MetricsLogger
+from tedm_tpu_torch.utils.profiling import StepTrace
 
 
 def init_seeded(seed: int, build: Callable[[], torch.nn.Module]) -> torch.nn.Module:
@@ -70,12 +72,13 @@ def compute_dtype(config: Config) -> torch.dtype:
 
 
 def unet_kernels(config: Config) -> Dict[str, bool]:
-    """The ``Unet`` arguments of the opt-in kernel flags, as every JAX
-    trainer passes ``config.use_pallas_{groupnorm,resblock,flash}`` to its
-    ``Unet`` (tedm_tpu/trainers/diffusion.py:71-80,
+    """The ``Unet`` arguments of the kernel flags, as every JAX trainer
+    passes ``config.use_pallas`` (off under ``--no_pallas``) and
+    ``config.use_pallas_{groupnorm,resblock,flash}`` to its ``Unet``
+    (tedm_tpu/trainers/diffusion.py:71-80,
     tedm_tpu/trainers/datasetdm.py:46-55,94-103)."""
     return dict(fused_groupnorm=config.use_pallas_groupnorm, fused_resblock=config.use_pallas_resblock,
-                flash_attention=config.use_pallas_flash)
+                flash_attention=config.use_pallas_flash, use_pallas=config.use_pallas)
 
 
 def to_nchw(a: np.ndarray, device: Union[str, torch.device]) -> torch.Tensor:
@@ -227,13 +230,15 @@ def train_segmentation(
         return {**{name: m.state_dict() for name, m in task.modules.items()},
                 "opt_state": optimizer.state_dict(), "step": step}
 
-    with graceful_shutdown() as should_stop:
+    with graceful_shutdown() as should_stop, StepTrace(config.profile_dir, dev) as tracer:
         for batch in loaders["train"].repeat():
             step += 1
+            tracer.before(step)
             loss, per_fold = train_step(
                 to_nchw(batch["image"], dev), to_nchw(batch["mask"], dev),
                 torch.from_numpy(batch["valid"]).to(dev), generator=generator, freeze=step < unfreeze_at,
             )
+            tracer.after(step)
             # device scalars: reading them here would wait for the card every step
             train_losses.append(loss)
             fold_losses.append(per_fold)

@@ -11,7 +11,8 @@ gradients are exactly the global masked mean. Validation: the mean loss over
 evenly spaced timesteps and a grid of samples from the full reverse
 trajectory, with the EMA weights when they exist. Checkpoints hold
 ``{"params", "opt_state", "step"[, "ema_params"]}`` state_dicts;
-``--resume_path`` restores them.
+``--resume_path`` restores them. ``--profile_dir`` traces steps 10 to 15
+(``utils/profiling.py``).
 
 t and the noise come from a ``torch.Generator`` on the device, seeded from
 ``config.seed``, or are given to the step.
@@ -41,6 +42,7 @@ from tedm_tpu_torch.utils.checkpoint import checkpoint_exists, load_checkpoint, 
 from tedm_tpu_torch.utils.device import resolve_device
 from tedm_tpu_torch.utils.interrupt import graceful_shutdown
 from tedm_tpu_torch.utils.logging import MetricsLogger
+from tedm_tpu_torch.utils.profiling import StepTrace
 
 CONDITIONAL = ("conditional", "joint_and_cond")
 
@@ -59,13 +61,16 @@ def mode_channels(config: Config) -> Tuple[int, int]:
 
 def build_model(config: Config) -> Unet:
     """The UNet of ``config`` with torch's default init from ``config.seed``,
-    computing in bf16 under ``--mixed_precision``, with the opt-in kernels
-    its ``--use_pallas_*`` flags switch on."""
+    computing in bf16 under ``--mixed_precision``, with the kernels its
+    ``--no_pallas`` and ``--use_pallas_*`` flags choose, and block
+    checkpointing under ``--remat`` (JAX passes ``remat`` in this trainer
+    alone, tedm_tpu/trainers/diffusion.py:82)."""
     x_ch, in_ch = mode_channels(config)
     return init_seeded(
         config.seed,
         lambda: Unet(dim=config.dim, dim_mults=tuple(config.dim_mults), channels=x_ch,
-                     in_channels=in_ch, dtype=compute_dtype(config), **unet_kernels(config)),
+                     in_channels=in_ch, dtype=compute_dtype(config), remat=config.remat,
+                     **unet_kernels(config)),
     )
 
 
@@ -254,14 +259,16 @@ def main(config: Config, device: Union[str, torch.device] = "cuda") -> None:
     best_val_loss = float("inf")
     train_losses, channel_losses = [], []
     t0, imgs = time.time(), 0
-    with graceful_shutdown() as should_stop:
+    with graceful_shutdown() as should_stop, StepTrace(config.profile_dir, dev) as tracer:
         for batch in loaders["train"].repeat():
             step += 1
+            tracer.before(step)
             x, cond = batch_to_x_cond(config, batch)
             loss, ch_losses = steps.train_step(
                 to_nchw(x, dev), to_nchw(cond, dev), torch.from_numpy(batch["valid"]).to(dev),
                 generator=generator,
             )
+            tracer.after(step)
             # device scalars: reading them here would wait for the card every step
             train_losses.append(loss)
             if config.experiment == "joint":

@@ -103,13 +103,13 @@ def test_entry_points_refuse_cpu_without_cuda(monkeypatch, tmp_path):
 
 def test_unported_experiment_names_its_roadmap_item(tmp_path):
     """The contrastive finetunes are served as baseline UNets; what the port
-    still refuses (the flags of ROADMAP A.5g and A.5h) names its item."""
+    still refuses (the flags of ROADMAP A.5h) names its item."""
     for experiment in ("global_finetune", "glob_loc_finetune"):
         task = build_eval_task(_config(tmp_path, experiment), device="cpu")
         assert isinstance(task, BaselineTask) and task.fold == 1
     with pytest.raises(ValueError, match="not recognized"):
         build_eval_task(_config(tmp_path, "global_cl"), device="cpu")
-    assert {item for _, _, item in NOT_PORTED} == {"A.5g", "A.5h"}
+    assert {item for _, _, item in NOT_PORTED} == {"A.5h"}
     for flag, _, item in NOT_PORTED:
         value = {"--remat": [], "--multihost": [], "--shard_spatial": [], "--mesh_shape": ["2"],
                  "--param_sharding": ["tp"], "--data_backend": ["grain"], "--profile_dir": ["p"]}[flag]
