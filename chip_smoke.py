@@ -126,6 +126,24 @@ Phases, each of which exits non-zero on failure:
      step against the step without it, in fp32 and with resblock + flash;
      a ``--profile_dir`` run whose trace holds B.1 and B.1b; the grid
      (``predict``) over phases 14-15's checkpoints, cold and warm;
+ 18. data parallel (``parallel/mesh.py``) in a world of one under NCCL, the
+     card's one rank launched as torchrun would (the env set here, a free
+     port): the backbone at batch 16 through train.main --multihost under
+     DDP and under --param_sharding fsdp, 10 steps each, in fp32 (B.1,
+     B.1b), bf16 with resblock + flash (B.2, B.4, B.4b, B.5) and with
+     groupnorm (B.3), with cuDNN's deterministic algorithms, each against
+     the same run without a process group: the losses, and the parameters
+     after step 4, at phases 6 and 10's gates, the launches a step equal,
+     the step times side by side; under FSDP at a large lr, every fused
+     ResnetBlock's and PreNorm block's output in every training forward
+     against its plain version on the weights of that step (a layout cached
+     from an earlier step's weights would miss), and the same run without
+     layout epochs as a control, with how often a weight came back as the
+     same tensor, address and version (the case the epochs guard;
+     reported); DDP of 2 ranks on the one card over gloo (2 backbone steps
+     at batch 8 a rank; NCCL refuses two ranks on one device), both ranks
+     logging the same loss; run_tests --multihost over phase 14's baseline
+     against its npz files;
 then one JSON line listing every kernel and the final JSON status line.
 """
 
@@ -1609,7 +1627,8 @@ def evaluate(name, cli, exp_dir, root):
 
 
 def eval_harness(tmp, backbone, root):
-    """Phase 14. Returns the runs' launches by path and the measurements."""
+    """Phase 14. Returns the runs' launches by path, the measurements and
+    the baseline's experiment directory (its npz files written)."""
     from tedm_tpu_torch.eval import run_tests, testing_shared_weights
 
     runs, report = [], {}
@@ -1635,7 +1654,7 @@ def eval_harness(tmp, backbone, root):
                                ("PDDM", run_tests, pddm)):
         counts, report[f"{name} eval"] = evaluate(name, cli, exp_dir, root)
         runs.append((f"{name} eval", counts))
-    return runs, report
+    return runs, report, base
 
 
 # ------------------------------------------------------------------ phase 15
@@ -2324,6 +2343,422 @@ def phase_17(tmp, served, served16, backbone_dir, backbone16, cond_dir):
     return runs, report
 
 
+# ------------------------------------------------------------------ phase 18
+
+# the backbone paths of phase 18: fp32 (B.1, B.1b), bf16 with the block
+# kernels (B.2, B.4, B.4b, B.5), GroupNorm (B.3)
+DP_PATHS = ((), ("--mixed_precision", "--use_pallas_resblock", "--use_pallas_flash"), ("--use_pallas_groupnorm",))
+DP_STEPS = 10                  # steps of each phase-18 run: step times are medians of steps 2-10
+DP_GATE_STEP = 4               # ... and the parameters are compared after step 4
+DP_LAYOUT_LR = 0.01            # the layout check's lr: each step moves the weights far past bf16's spacing
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_run(tmp, flags, mode, label):
+    """One backbone run of phase 18: DP_STEPS steps at batch 16 through
+    train.main, without a process group (``mode`` None) or in a world of one
+    under ``--multihost`` (``replicated``: DDP; ``fsdp``: FSDP2). Returns the
+    losses, the parameters after step DP_GATE_STEP, the launches a step and
+    the median step ms of steps 2 on."""
+    from tedm_tpu_torch.config import config_from_args
+    from tedm_tpu_torch.train import main as train_main
+    from tedm_tpu_torch.utils.checkpoint import load_checkpoint
+
+    argv = ["--experiment", "img_only", "--synthetic_data", "--max_steps", str(DP_STEPS), "--log_freq", "1",
+            "--val_freq", str(10 * DP_STEPS), "--ckpt_every", str(DP_GATE_STEP), "--seed", str(SEED),
+            "--log_dir", os.path.join(tmp, "dp", label.replace(" ", "_")), *flags]
+    if mode is not None:
+        argv += ["--multihost", "--param_sharding", mode]
+    cfg = config_from_args(argv)
+    reset_launches()
+    train_main(argv, device="cuda")
+    torch.cuda.synchronize()
+    counts = read_launches()
+    recs = [r for r in read_metrics(cfg.log_dir) if "train/loss" in r]
+    state, _ = load_checkpoint(os.path.join(cfg.log_dir, f"step_{DP_GATE_STEP}"), verbose=False)
+    step_ms = [1e3 * cfg.batch_size / r["train/imgs_per_sec"] for r in recs]
+    return {"losses": [r["train/loss"] for r in recs], "params": state["params"],
+            "per_step": {k: v / DP_STEPS for k, v in counts.items()}, "counts": counts,
+            "step_ms": statistics.median(step_ms[1:]), "all_step_ms": step_ms}
+
+
+def layout_check(tmp, flags, fresh: bool):
+    """FSDP in a world of one on ``flags``' path at lr DP_LAYOUT_LR: in every
+    training forward, each fused ResnetBlock's and PreNorm block's output
+    (its weights laid out by ``kernels/layouts.py``) against its plain
+    version on the weights it holds then, and each of its cached layouts
+    against the layout built anew from those weights (equal unless stale).
+    ``fresh`` False takes out the layout epochs (``layouts.new_epoch`` a
+    no-op): the control. Returns the largest output error relative to the
+    plain output's largest entry, by step (a NaN reads as inf); the count of
+    stale layouts; how often a watched weight came back at the address of
+    its freed storage; and how often it came back as the same tensor at the
+    same address and version after an optimizer step, where a cache keyed by
+    (tensor, version, address) alone would serve a stale layout."""
+    from torch.optim.optimizer import register_optimizer_step_post_hook
+
+    from tedm_tpu_torch.kernels import attn_block, layouts, resblock
+    from tedm_tpu_torch.models.unet import LinearAttention, PreNormAttn, ResnetBlock
+    from tedm_tpu_torch.parallel import mesh
+    from tedm_tpu_torch.train import main as train_main
+
+    errs, addresses, reused, keys, hazards, stale = collections.defaultdict(float), {}, [0], {}, [0], [0]
+    step = [0]
+
+    def stale_layouts(module) -> int:
+        ids = {id(w): w for w in module.parameters()}
+        n = 0
+        for (wid, key), (ref, _, layout) in list(layouts._cache.items()):
+            w = ids.get(wid)
+            if w is None or ref() is not w:
+                continue
+            if isinstance(key, torch.dtype):  # B.4's tensor-core layout in that dtype
+                now = resblock.tc_weight_layout(w, key)
+            else:  # B.2's fragments of a (16 m-tiles, 16 k-tiles) view
+                now = attn_block.fragment_layout(w.reshape(layout.shape[0] * 16, layout.shape[1] * 16))
+            n += not torch.equal(now, layout)
+        return n
+
+    def hook(module, args, out):
+        if not torch.is_grad_enabled():
+            return
+        with torch.no_grad():
+            if isinstance(module, ResnetBlock):
+                w, switch = module.block1.proj.weight, (module, "fused")
+            else:
+                w, switch = module.fn.fn.to_qkv.weight, (module.fn.fn, "use_pallas")
+            setattr(*switch, False)
+            ref = module.forward(*args)
+            setattr(*switch, True)
+            stale[0] += stale_layouts(module)
+        ptr, key = w.data_ptr(), (id(w), w.data_ptr(), w._version)
+        reused[0] += addresses.get(id(module)) == ptr
+        hazards[0] += keys.get(id(module), (None, None))[1] == key and keys[id(module)][0] < step[0]
+        addresses[id(module)], keys[id(module)] = ptr, (step[0], key)
+        err = rel_err(out.float(), ref.float())
+        errs[step[0]] = max(errs[step[0]], err if math.isfinite(err) else math.inf)
+
+    wrap = mesh.DataParallel.wrap
+
+    def wrap_and_watch(self, module, find_unused=False):
+        out = wrap(self, module, find_unused)
+        for m in module.modules():
+            if (isinstance(m, ResnetBlock) and m.fused) or (
+                    isinstance(m, PreNormAttn) and isinstance(m.fn.fn, LinearAttention) and m.compute_dtype == torch.bfloat16):
+                m.register_forward_hook(hook, prepend=True)
+        return out
+
+    count_steps = lambda opt, *a, **k: step.__setitem__(0, step[0] + 1)
+    handle = register_optimizer_step_post_hook(count_steps)
+    new_epoch = layouts.new_epoch
+    try:
+        mesh.DataParallel.wrap = wrap_and_watch
+        if not fresh:
+            layouts.new_epoch = lambda: None
+        train_main(["--experiment", "img_only", "--synthetic_data", "--max_steps", str(DP_STEPS), "--log_freq", "1",
+                    "--val_freq", str(10 * DP_STEPS), "--seed", str(SEED), "--lr", str(DP_LAYOUT_LR),
+                    "--log_dir", os.path.join(tmp, "dp", f"layouts_{fresh}"), "--multihost", "--param_sharding", "fsdp",
+                    *flags], device="cuda")
+    finally:
+        mesh.DataParallel.wrap = wrap
+        layouts.new_epoch = new_epoch
+        handle.remove()
+    return [errs[s] for s in sorted(errs)], stale[0], reused[0], hazards[0]
+
+
+def dp_eval(tmp, base_dir, root):
+    """run_tests in a world of one over phase 14's baseline checkpoint (a
+    copy, with --multihost): its npz files against phase 14's."""
+    import shutil
+
+    from tedm_tpu_torch.eval import harness as H
+    from tedm_tpu_torch.eval import run_tests
+
+    mine = os.path.join(tmp, "dp", "eval")
+    shutil.copytree(base_dir, mine)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        run_tests.main(["--experiment", mine, "--nih_path", os.path.join(root, "NIH"),
+                        "--mon_path", os.path.join(root, "Montgomery"), "--multihost", "--rerun"], device="cuda")
+    secs = time.perf_counter() - t0
+    errs = {}
+    for key in H.DATASET_KEYS:
+        one, dp = (H.load_output(os.path.join(d, f"{key}_predictions.npz")) for d in (base_dir, mine))
+        errs[key] = float(np.abs(one["y_hat"] - dp["y_hat"]).max())
+    return errs, secs
+
+
+DP_TWO_ROWS = 8  # rows a rank in the 2-rank check on one card: a global batch of phase 18's 16
+
+
+def two_rank_inputs(out):
+    """The 2-rank check's one step: the backbone's initial weights (from the
+    seed, default widths) and a global batch of 2 * DP_TWO_ROWS synthetic
+    images with its t and noise, made on the host from the seed and written
+    to ``out``; rank r takes rows r * DP_TWO_ROWS on."""
+    from tedm_tpu_torch.config import config_from_args
+    from tedm_tpu_torch.data.datasets import SyntheticCXRDataset
+    from tedm_tpu_torch.trainers import diffusion as D
+    from tedm_tpu_torch.trainers.common import init_seeded, to_nchw
+
+    cfg = config_from_args(["--experiment", "img_only", "--seed", str(SEED), "--log_dir", os.path.join(out, "unused")])
+    n = 2 * DP_TWO_ROWS
+    data = SyntheticCXRDataset("cxr_train", n, cfg.img_size, labelled=False, seed=SEED)
+    rs = np.random.RandomState(SEED + 18)
+    batch = {"init": init_seeded(SEED, lambda: D.build_model(cfg)).state_dict(),
+             "x": to_nchw(np.stack([data[i] for i in range(n)]), "cpu"), "valid": torch.ones(n),
+             "t": torch.from_numpy(rs.randint(0, cfg.timesteps, n)),
+             "noise": torch.from_numpy(rs.standard_normal((n, 1, cfg.img_size, cfg.img_size)).astype(np.float32))}
+    torch.save(batch, os.path.join(out, "batch.pt"))
+    return batch
+
+
+def backbone_step(batch, rows, dp=None):
+    """One backbone step on the card from ``batch``'s weights over ``rows``
+    of it, with its t and noise: the loss, the gradients the optimizer used
+    (under DDP the mean over the ranks) and the parameters after the step."""
+    from tedm_tpu_torch.config import config_from_args
+    from tedm_tpu_torch.ops.schedules import make_schedule
+    from tedm_tpu_torch.trainers import diffusion as D
+    from tedm_tpu_torch.trainers.common import make_optimizer
+
+    cfg = config_from_args(["--experiment", "img_only", "--seed", str(SEED), "--log_dir", tempfile.gettempdir()])
+    unet = D.build_model(cfg)
+    unet.load_state_dict(batch["init"])
+    unet.to("cuda")
+    model = unet if dp is None else dp.wrap(unet)
+    params = unet.parameters() if dp is None else dp.optimizer_params(unet.parameters())
+    sched = make_schedule(cfg.timesteps, cfg.beta_schedule, cfg.p2_loss_weight_gamma, cfg.p2_loss_weight_k).to("cuda")
+    steps = D.make_steps(cfg, model, sched, make_optimizer(cfg, params), None, dp)
+    pick = lambda k: batch[k][rows].cuda()
+    loss, _ = steps.train_step(pick("x"), torch.zeros(1, device="cuda"), pick("valid"), t=pick("t"), noise=pick("noise"))
+    return {"loss": loss.item(), "lr": cfg.lr, "grads": {n: p.grad.cpu() for n, p in unet.named_parameters()},
+            "params": {n: p.detach().cpu() for n, p in unet.named_parameters()}}
+
+
+def two_ranks_on_one_card(tmp):
+    """DDP of 2 ranks on the one card over gloo (NCCL refuses two ranks on
+    one device). Each rank runs a backbone through train.main for 2 steps
+    at batch DP_TWO_ROWS and keeps its logged losses and its parameters
+    after step 2, then takes one DDP step on its rows of
+    ``two_rank_inputs``' global batch. Returns each rank's results (or the
+    error that stopped it) and this process's step on the whole batch."""
+    import torch.multiprocessing as mp
+
+    out = os.path.join(tmp, "dp", "two")
+    os.makedirs(out, exist_ok=True)
+    batch = two_rank_inputs(out)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_gloo_rank, args=(r, out)) for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    one = backbone_step(batch, slice(None))
+    ranks = [torch.load(f, weights_only=False) if os.path.exists(f := os.path.join(out, f"rank{r}.pt"))
+             else {"error": "no result"} for r in range(2)]
+    return ranks, one
+
+
+def _gloo_rank(rank, out):
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+    from torch.optim.optimizer import register_optimizer_step_post_hook
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    res = {}
+    try:
+        dist.init_process_group("gloo", store=dist.FileStore(os.path.join(out, "store"), 2), rank=rank,
+                                world_size=2, timeout=datetime.timedelta(seconds=120))
+        torch.cuda.set_device(0)
+        from tedm_tpu_torch.parallel.mesh import DataParallel
+        from tedm_tpu_torch.train import main as train_main
+        from tedm_tpu_torch.utils import logging
+
+        log = logging.MetricsLogger.log
+        losses, params = [], []
+
+        def recording(self, metrics, step):
+            if "train/loss" in metrics:
+                losses.append(float(metrics["train/loss"]))
+            return log(self, metrics, step)
+
+        def keep_params(optimizer, *_):
+            params[:] = [p.detach().cpu().clone() for g in optimizer.param_groups for p in g["params"]]
+
+        logging.MetricsLogger.log = recording
+        handle = register_optimizer_step_post_hook(keep_params)
+        train_main(["--experiment", "img_only", "--synthetic_data", "--max_steps", "2", "--log_freq", "1",
+                    "--val_freq", "100", "--batch_size", str(DP_TWO_ROWS), "--seed", str(SEED), "--multihost",
+                    "--log_dir", os.path.join(out, f"r{rank}", "run")], device="cuda:0")
+        handle.remove()
+        batch = torch.load(os.path.join(out, "batch.pt"), weights_only=False)
+        step = backbone_step(batch, slice(rank * DP_TWO_ROWS, (rank + 1) * DP_TWO_ROWS), DataParallel("replicated"))
+        res = {"losses": losses, "params_after_2": params, "step": step}
+        dist.destroy_process_group()
+    except Exception:
+        res = {"error": traceback.format_exc()[-1500:]}
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+
+
+def adam_param_err(got, want, grads, lr):
+    """The largest difference of parameters after one Adam step in units of
+    its bound, and the tensor where it lies. The bound is 1e-3 * lr where
+    the gradient is more than 1e-4 of its tensor's largest entry and more
+    than 1e-5, else 2 * lr, plus two fp32 spacings of the parameter. Adam's
+    first step moves an entry by lr * g / (|g| + 1e-8): a gradient that
+    rounding can flip moves it by up to lr either way, and near |g| = 1e-6
+    a rounding error of 1e-7 in g (1e-5 of a largest gradient of 1e-2, as
+    the card reads at full width) swings it by 1e-3 * lr; and the stored
+    parameter is rounded to fp32, whose spacing at |p| = 1 (a GroupNorm
+    gain) is 1.2e-7, more than 1e-3 * lr at lr 1e-4. At most 1 passes."""
+    worst, where = 0.0, None
+    for n, w in want.items():
+        g = grads[n].abs()
+        bound = torch.where((g > 1e-4 * g.max()) & (g > 1e-5), 1e-3 * lr, 2 * lr)
+        bound = bound + 2 * torch.finfo(torch.float32).eps * w.abs()
+        err = ((got[n] - w).abs() / bound).max().item()
+        if err >= worst:
+            worst, where = err, n
+    return worst, where
+
+
+def phase_18(tmp, base_dir, root):
+    """Phase 18: data parallel in a world of one under NCCL, against the same
+    runs without a process group. Returns the runs' launches by path and the
+    measurements."""
+    import torch.distributed as dist
+
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()), "RANK": "0", "WORLD_SIZE": "1",
+           "LOCAL_RANK": "0"}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    # cuDNN's deterministic algorithms in all of this phase's runs, so that a
+    # run in a world of one can be held to the run without a group
+    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    runs, report = [], {}
+    try:
+        # every run without a group first: --multihost's group lives on in the process
+        plain = {flags: dp_run(tmp, flags, None, label_of("--mixed_precision" in flags, flags) + "plain")
+                 for flags in DP_PATHS}
+        for flags in DP_PATHS:
+            mixed = "--mixed_precision" in flags
+            kernel_flags = tuple(f for f in flags if f != "--mixed_precision")
+            label = label_of(mixed, kernel_flags) + "backbone"
+            loss_gate, param_gate = (BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL) if mixed else (STEP_LOSS_TOL, STEP_GRAD_TOL)
+            one = plain[flags]
+            if one["per_step"] != per_unet_call(mixed, kernel_flags, backward=True):
+                fail(f"phase 18 {label}: {one['per_step']} launches a step without a group, expected "
+                     f"{per_unet_call(mixed, kernel_flags, backward=True)}")
+            row = {"plain_step_ms": one["step_ms"], "plain_all_step_ms": one["all_step_ms"]}
+            for mode, name in (("replicated", "DDP"), ("fsdp", "FSDP")):
+                got = dp_run(tmp, flags, mode, f"{label} {name}")
+                loss_err = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], one["losses"]))
+                param_err = max(((got["params"][k] - v).abs().max() / v.abs().max().clamp(min=1e-12)).item()
+                                for k, v in one["params"].items())
+                print(f"phase 18 {label} {name} (world of one, NCCL): losses {got['losses']} against "
+                      f"{one['losses']} without a group (largest relative difference {loss_err:.3e}, gate "
+                      f"{loss_gate}); parameters after step {DP_GATE_STEP}: largest difference {param_err:.3e} of a tensor's largest "
+                      f"entry (gate {param_gate}); launches a step {({k: v for k, v in got['per_step'].items() if v})} "
+                      f"(without a group {({k: v for k, v in one['per_step'].items() if v})}); median step "
+                      f"{got['step_ms']:.3f} ms against {one['step_ms']:.3f} ms ({got['step_ms'] / one['step_ms']:.3f}x); "
+                      f"step ms {[round(x, 2) for x in got['all_step_ms']]}", flush=True)
+                if len(got["losses"]) != DP_STEPS or not loss_err <= loss_gate or not param_err <= param_gate:
+                    fail(f"phase 18 {label} {name}: losses or parameters off the run without a group")
+                if got["per_step"] != one["per_step"]:
+                    fail(f"phase 18 {label} {name}: launches a step {got['per_step']} != {one['per_step']}")
+                runs.append((f"{label_of(mixed, kernel_flags)}training (a) {name}", got["counts"]))
+                row[name] = {"step_ms": got["step_ms"], "all_step_ms": got["all_step_ms"],
+                             "vs_plain": got["step_ms"] / one["step_ms"], "loss_err": loss_err,
+                             "param_err": param_err}
+            report[label] = row
+        # point f: B.2's and B.4's cached weight layouts under FSDP
+        flags = DP_PATHS[1]
+        errs, stale, reused, hazards = layout_check(tmp, flags, fresh=True)
+        ctl, ctl_stale, ctl_reused, ctl_hazards = layout_check(tmp, flags, fresh=False)
+        print(f"phase 18 FSDP layouts (bf16 resblock + flash, lr {DP_LAYOUT_LR}): largest error of a fused "
+              f"ResnetBlock or PreNorm block against its plain version on the current weights, by step: "
+              f"{[f'{e:.3e}' for e in errs]} (gate {BLOCK_TOL}); cached layouts unlike the ones built anew from "
+              f"the current weights: {stale}; a watched weight at its freed storage's address {reused} times, the "
+              f"same tensor, address and version after an optimizer step {hazards} times. Control without layout "
+              f"epochs: {[f'{e:.3e}' for e in ctl]}, {ctl_stale} stale layouts ({ctl_reused} reuses, {ctl_hazards} "
+              f"same keys)", flush=True)
+        if len(errs) != DP_STEPS or not max(errs) <= BLOCK_TOL or stale:
+            fail(f"phase 18: a stale weight layout under FSDP: errors {errs}, {stale} stale layouts")
+        if ctl_hazards and not ctl_stale:
+            fail("phase 18: the control served no stale layout where a weight came back unchanged in key")
+        report["layouts"] = {"errors": errs, "stale": stale, "reused": reused, "same_key": hazards,
+                             "control_errors": ctl, "control_stale": ctl_stale, "control_reused": ctl_reused,
+                             "control_same_key": ctl_hazards}
+        t0 = time.perf_counter()
+        two, one = two_ranks_on_one_card(tmp)
+        secs = time.perf_counter() - t0
+        errors = [r["error"] for r in two if "error" in r]
+        if errors:
+            fail(f"phase 18: 2 ranks on one card: {errors}")
+        losses = [r["losses"] for r in two]
+        same_params = len(two[0]["params_after_2"]) == len(two[1]["params_after_2"]) > 0 and all(
+            torch.equal(a, b) for a, b in zip(two[0]["params_after_2"], two[1]["params_after_2"]))
+        steps = [r["step"] for r in two]
+        loss_err = abs(steps[0]["loss"] - one["loss"]) / abs(one["loss"])
+        grad_errs = {n: rel_err(steps[0]["grads"][n], g) for n, g in one["grads"].items()}
+        worst = max(grad_errs, key=grad_errs.get)
+        param_err, param_at = adam_param_err(steps[0]["params"], one["params"], one["grads"], one["lr"])
+        step_same = steps[0]["loss"] == steps[1]["loss"] and all(
+            torch.equal(steps[0]["params"][n], steps[1]["params"][n]) for n in one["params"])
+        print(f"phase 18 DDP of 2 ranks on the one card over gloo (NCCL refuses two ranks on one device): "
+              f"{secs:.1f} s; train.main at batch {DP_TWO_ROWS} a rank: each rank's logged losses {losses}, "
+              f"parameters after step 2 bitwise equal on both ranks: {same_params}; one DDP step on rows of a "
+              f"global batch of {2 * DP_TWO_ROWS} against one process on the whole batch, with the same t and "
+              f"noise: loss {steps[0]['loss']:.6f} vs {one['loss']:.6f} (relative {loss_err:.2e}, tol "
+              f"{STEP_LOSS_TOL}), gradients of {len(grad_errs)} tensors worst relative to the tensor's largest "
+              f"entry {grad_errs[worst]:.2e} at {worst} (tol {STEP_GRAD_TOL}), parameters after the step "
+              f"{param_err:.3f} of Adam's bound at {param_at} (at most 1); both ranks' loss and parameters equal: "
+              f"{step_same}",
+              flush=True)
+        if not losses[0] or losses[0] != losses[1] or len(losses[0]) != 2 or not all(map(math.isfinite, losses[0])):
+            fail(f"phase 18: 2 ranks on one card logged losses {losses}")
+        if not same_params or not step_same:
+            fail("phase 18: 2 ranks on one card hold different parameters")
+        if not (math.isfinite(one["loss"]) and loss_err <= STEP_LOSS_TOL and grad_errs[worst] <= STEP_GRAD_TOL
+                and param_err <= 1.0):
+            fail("phase 18: the 2-rank DDP step on one card disagrees with one process on the global batch")
+        report["two ranks on one card (gloo)"] = {"seconds": secs, "losses": losses[0], "step_loss_rel_err": loss_err,
+                                                  "step_worst_grad_rel_err": grad_errs[worst],
+                                                  "step_param_err_of_bound": param_err}
+        errs, secs = dp_eval(tmp, base_dir, root)
+        print(f"phase 18 run_tests --multihost in a world of one over phase 14's baseline: {secs:.2f} s; largest "
+              f"difference of y_hat from phase 14's npz by set {errs} (gate {PATH_TOL})", flush=True)
+        if not max(errs.values()) <= PATH_TOL:
+            fail(f"phase 18: the eval in a world of one differs from phase 14's: {errs}")
+        report["eval"] = {"seconds": secs, "max_abs_err": errs}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return runs, report
+
+
 def add_paths(*runs) -> dict:
     """Each kernel's launches summed over the named runs of its main path:
     {kernel: {path: launches}}, paths with no launch left out."""
@@ -2409,17 +2844,19 @@ def main() -> None:
                            train_head(tmp, backbone, False, ("--use_pallas_groupnorm",), HEAD_STEPS)))
         with Phase("14. eval harness, baseline and PDDM on a corpus of files"):
             root = export_hard_corpus(tmp)
-            evals, eval_report = eval_harness(tmp, backbone, root)
+            evals, eval_report, base_dir = eval_harness(tmp, backbone, root)
         with Phase("15. contrastive arms: pretraining, finetunes, eval, serving"):
             cl_runs, cl_report = contrastive_arms(tmp, root)
         with Phase("16. samplers and the conditional eval"):
             cond_runs, cond_report, cond_dir = conditional_chain(tmp, root)
         with Phase("17. --no_pallas, CUDA graphs, export, the grid, --remat, --profile_dir"):
             runs17, report17 = phase_17(tmp, served, served16, os.path.dirname(backbone), backbone16, cond_dir)
+        with Phase("18. data parallel in a world of one: DDP and FSDP against no group, layouts, eval"):
+            runs18, report18 = phase_18(tmp, base_dir, root)
 
     paths = add_paths(("serving", served["launches"]), ("training (a)", a32), ("training (b)", b32),
                       ("bf16 serving", served16["launches"]), ("bf16 training (a)", a16),
-                      ("bf16 training (b)", b16), *opt_in, *evals, *cl_runs, *cond_runs, *runs17)
+                      ("bf16 training (b)", b16), *opt_in, *evals, *cl_runs, *cond_runs, *runs17, *runs18)
     bounded = lambda rows: "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations"
     gn_req = [(s, torch.float32, f) for s, f in gn_calls(8)]
     rb_req = [(s, torch.float32) for s in rb_shapes(8)]
@@ -2528,7 +2965,7 @@ def main() -> None:
         if kern["launches"] == 0:
             fail(f"{kern['name']} was never launched on the main path")
     print(json.dumps({"kernels": kernels, "phase_14": eval_report, "phase_15": cl_report, "phase_16": cond_report,
-                      "phase_17": report17}))
+                      "phase_17": report17, "phase_18": report18}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

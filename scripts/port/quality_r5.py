@@ -20,8 +20,9 @@ band). Writes
 r5 values, and on JSRT_test whether the mean of the port's seeds lies in
 the r5 band (the span of the r5 tedm_tpu and torch values widened by 1.0;
 a cell with one r5 value, that value +-1.5). A backbone already in
-``<out>`` is reused (and said so); the heads are always trained and
-evaluated anew.
+``<out>`` is reused (and said so), or ``--backbone_dir`` names one (the JAX
+package's, carried over by ``scripts/jax_backbone_to_port.py``); the heads
+are always trained and evaluated anew.
 
     python scripts/port/quality_r5.py --root DIR/corpus --out DIR/runs
     # with the contrastive arm:
@@ -127,6 +128,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--head_steps", type=int, default=300)
     ap.add_argument("--sizes", nargs="+", type=int, default=[1, 3])
     ap.add_argument("--seeds", nargs="+", type=int, default=[0, 1, 2])
+    ap.add_argument("--backbone_dir", type=str, default=None,
+                    help="the heads' backbone: this checkpoint directory instead of one trained here (e.g. the JAX "
+                         "package's, carried over by scripts/jax_backbone_to_port.py)")
     ap.add_argument("--backbone_seed", type=int, default=0,
                     help="the backbone's seed (r5: 0); another shows how much the heads move with the backbone")
     ap.add_argument("--batch_size", type=int, default=16)
@@ -160,10 +164,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     with_data = lambda corpus: [a if a else os.path.join(args.root, corpus) for a in common]
     nih, mon = os.path.join(args.root, "NIH"), os.path.join(args.root, "Montgomery")
 
-    backbone = os.path.join(args.out, "CXR14", "run", "best")
+    backbone = args.backbone_dir or os.path.join(args.out, "CXR14", "run", "best")
     timing = {}
     if not set(args.experiments) - {"baseline", "global_finetune", "glob_loc_finetune"}:
         print("=== backbone: not needed ===", flush=True)
+    elif args.backbone_dir:
+        print(f"=== backbone: {backbone} (given) ===", flush=True)
     elif os.path.isdir(backbone):
         print(f"=== backbone: reusing {backbone} ===", flush=True)
     else:
@@ -201,7 +207,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         out = os.path.join(args.out, f"s{seed}")
         summary = {"img_size": args.img_size, "backbone_steps": args.backbone_steps,
                    "head_steps": args.head_steps, "framework": "tedm_tpu_torch", "device": device_name,
-                   "seed": seed, "backbone_seed": args.backbone_seed, "extract_unnormalized": False, "ema_decay": 0.0, "serve_raw_params": False,
+                   "seed": seed, "backbone_seed": args.backbone_seed, "backbone_dir": args.backbone_dir, "extract_unnormalized": False, "ema_decay": 0.0, "serve_raw_params": False,
                    "experiments": {}, "timing": timing if seed == args.seeds[0] else {}}
         for exp in args.experiments:
             step_t = int(exp.split("_", 1)[1]) if exp.startswith("Step_") else None

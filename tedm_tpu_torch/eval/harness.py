@@ -19,8 +19,11 @@ of ``tedm_tpu/eval/harness.py``; reference: auxiliary/postprocessing/run_tests.p
   ``--ddim_steps`` > 0, else by the full T-step ancestral loop, the mean of
   ``n_runs`` trajectories a batch.
 
-``eval_parallel_setup`` is not ported: evaluation runs on one device
-(ROADMAP item A.5h).
+* Sharded evaluation (``eval_parallel_setup``, tedm_tpu/eval/harness.py:124-133):
+  in a data-parallel run each batch's rows are split over the ranks and
+  gathered back in order. Every rank draws the noise of the whole batch
+  from the same generator and keeps its rows, so the predictions of any
+  number of ranks are those of one.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from tedm_tpu_torch.config import Config
 from tedm_tpu_torch.data.datasets import MonDataset, NIHDataset, SyntheticCXRDataset
 from tedm_tpu_torch.data.pipeline import Loader, build_dataloaders
 from tedm_tpu_torch.ops import metrics as M
+from tedm_tpu_torch.parallel import mesh
 from tedm_tpu_torch.trainers.common import to_nchw
 from tedm_tpu_torch.utils.checkpoint import checkpoint_exists, load_checkpoint, load_config
 from tedm_tpu_torch.utils.device import resolve_device
@@ -118,6 +122,35 @@ def build_test_loaders(
     return out
 
 
+def eval_parallel_setup(config: Config) -> Optional[Tuple[int, int]]:
+    """(rank, world) when the ranks of a data-parallel run share each
+    batch of ``config.batch_size`` rows, else None (one rank, or a batch the
+    ranks do not divide: every rank then predicts every row), as JAX's
+    wiring is the identity on one device or an indivisible batch."""
+    n = mesh.world()
+    return (mesh.rank(), n) if n > 1 and config.batch_size % n == 0 else None
+
+
+def _rows(shard: Optional[Tuple[int, int]], b: int) -> Optional[slice]:
+    """This rank's rows of a batch of ``b``, None when unsharded."""
+    if shard is None or b % shard[1]:
+        return None
+    per = b // shard[1]
+    return slice(shard[0] * per, (shard[0] + 1) * per)
+
+
+def _step_rows(a: torch.Tensor, steps: int, rows: slice) -> torch.Tensor:
+    """``rows`` of each step of a step-major (steps * b, ...) tensor."""
+    return a.reshape(steps, -1, *a.shape[1:])[:, rows].reshape(-1, *a.shape[1:])
+
+
+def _gather_step_major(pred: torch.Tensor, steps: int) -> torch.Tensor:
+    """Every rank's step-major (steps * b_rank, ...) rows as the global
+    batch's step-major (steps * b, ...) rows."""
+    per_rank = pred.reshape(steps, -1, *pred.shape[1:]).transpose(0, 1).contiguous()
+    return mesh.gather_rows(per_rank).transpose(0, 1).reshape(-1, *pred.shape[1:])
+
+
 def load_diffusion_experiment(
     exp_dir: str, device: Union[str, torch.device] = "cuda"
 ) -> Tuple[Config, torch.nn.Module, Any]:
@@ -148,15 +181,19 @@ def make_conditional_sampler(config: Config, unet: torch.nn.Module, sched) -> Ca
     from tedm_tpu_torch.models.diffusion import ddim_sample_loop, sample_loop
 
     @torch.inference_mode()
-    def run_once(cond, generator=None, x_T=None, noises=None):
+    def run_once(cond, generator=None, x_T=None, noises=None, rows=None, batch=None):
+        """``rows``: the rows of a batch of ``batch`` that ``cond`` holds;
+        every draw is made for the whole batch and cut to them."""
         apply_fn = lambda x, t: unet(torch.cat([x, cond], dim=1), t)
-        shape = (cond.shape[0], 1, *cond.shape[2:])
+        shape = (cond.shape[0] if rows is None else batch, 1, *cond.shape[2:])
         kw = dict(objective=config.objective, dynamic_threshold_percentile=config.dynamic_threshold_percentile)
         if config.ddim_steps > 0:
-            x0 = ddim_sample_loop(apply_fn, sched, shape, generator, num_steps=config.ddim_steps, x_T=x_T,
-                                  noises=noises, **kw)
+            if rows is not None and x_T is None:  # the only draw at eta 0
+                x_T = torch.randn(shape, generator=generator, device=sched.alphas_cumprod.device)[rows]
+            x0 = ddim_sample_loop(apply_fn, sched, tuple(cond.shape[:1]) + shape[1:], generator,
+                                  num_steps=config.ddim_steps, x_T=x_T, noises=noises, **kw)
         else:
-            x0 = sample_loop(apply_fn, sched, shape, generator, **kw)
+            x0 = sample_loop(apply_fn, sched, shape, generator, rows=rows, **kw)
         return x0 * 0.5 + 0.5
 
     return run_once
@@ -171,24 +208,36 @@ def predict_conditional_dataset(
     n_runs: int = 5,
     run_once: Optional[Callable[..., torch.Tensor]] = None,
     draws: Optional[Iterable[Tuple[torch.Tensor, Optional[Sequence[torch.Tensor]]]]] = None,
+    shard: Optional[Tuple[int, int]] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """The reference's costliest inference (run_tests.py:121-137): per batch,
     the mean of ``n_runs`` trajectories of the segmentation conditioned on
     the image, as (y_hat, y_star) NHWC numpy without the padding rows.
     ``draws`` gives each run's (x_T, DDIM noises), NCHW, batch by batch;
     else they come from ``generator``. Pass a ``run_once`` built once
-    (``make_conditional_sampler``) when evaluating several sets."""
+    (``make_conditional_sampler``) when evaluating several sets. ``shard``
+    (``eval_parallel_setup``) splits each batch's rows over the ranks."""
     run_once = run_once or make_conditional_sampler(config, unet, sched)
     dev = next(unet.parameters()).device
     draws = None if draws is None else iter(draws)
     y_hats, y_stars = [], []
     for batch in loader:
         cond = to_nchw(batch["image"], dev) * 2.0 - 1.0
+        b = cond.shape[0]
+        rows = _rows(shard, b)
         runs = []
         for _ in range(n_runs):
             x_T, noises = next(draws) if draws is not None else (None, None)
-            runs.append(run_once(cond, generator, x_T, noises))
-        pred = torch.stack(runs).mean(dim=0).permute(0, 2, 3, 1).cpu().numpy()
+            if rows is None:
+                runs.append(run_once(cond, generator, x_T, noises))
+            else:
+                cut = lambda a: None if a is None else a[rows]
+                runs.append(run_once(cond[rows], generator, cut(x_T),
+                                     None if noises is None else [cut(z) for z in noises], rows, b))
+        pred = torch.stack(runs).mean(dim=0)
+        if rows is not None:
+            pred = mesh.gather_rows(pred)
+        pred = pred.permute(0, 2, 3, 1).cpu().numpy()
         nvalid = int(batch["valid"].sum())
         y_hats.append(pred[:nvalid])
         y_stars.append(batch["mask"][:nvalid])
@@ -215,18 +264,31 @@ def predict_dataset(
     fold: int = 1,
     fwd: Optional[Callable[..., torch.Tensor]] = None,
     noise: Optional[Iterable[np.ndarray]] = None,
+    shard: Optional[Tuple[int, int]] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Sigmoid predictions over a loader: (y_hat, y_star), NHWC numpy, the
     padding rows dropped; y_hat is (fold, N, H, W, C), step-major, when
     fold > 1. The feature noise comes from ``generator``, or from ``noise``:
-    one NHWC array a batch (B rows, or S*B step-major)."""
+    one NHWC array a batch (B rows, or S*B step-major). ``shard``
+    (``eval_parallel_setup``) splits each batch's rows over the ranks."""
     dev = next(task.trained.parameters()).device
     fwd = fwd or make_predict_fn(task)
     noise = None if noise is None else iter(noise)
+    steps = len(task.t_steps)  # the noise rows of an image (none for the baseline)
     y_hats, y_stars = [], []
     for batch in loader:
+        x = to_nchw(batch["image"], dev)
         n = None if noise is None else to_nchw(next(noise), dev)
-        pred = fwd(to_nchw(batch["image"], dev), generator, n).permute(0, 2, 3, 1).cpu().numpy()
+        rows = _rows(shard, x.shape[0])
+        if rows is None:
+            pred = fwd(x, generator, n)
+        else:
+            if n is None and steps:  # extract_features' draw, for the whole batch
+                n = torch.randn((steps * x.shape[0], *x.shape[1:]), generator=generator, device=dev)
+            if n is not None:
+                n = _step_rows(n, n.shape[0] // x.shape[0], rows)
+            pred = _gather_step_major(fwd(x[rows], generator, n), fold)
+        pred = pred.permute(0, 2, 3, 1).cpu().numpy()
         nvalid = int(batch["valid"].sum())
         b = len(batch["valid"])
         pred = pred.reshape(fold, b, *pred.shape[1:])[:, :nvalid] if fold > 1 else pred[:nvalid]

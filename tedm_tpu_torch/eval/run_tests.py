@@ -3,6 +3,7 @@ auxiliary/postprocessing/run_tests.py).
 
     python -m tedm_tpu_torch.eval.run_tests --experiment <logdir>/<n>/<ts> [--rerun]
         [--nih_path DIR] [--mon_path DIR] [--ddim_steps N]
+    torchrun --nproc_per_node N -m tedm_tpu_torch.eval.run_tests --multihost ...
 
 Evaluates the checkpointed model on the card over JSRT_val, JSRT_test, NIH
 and Montgomery, writes ``{dataset}_predictions.npz`` (keys: y_hat, y_star,
@@ -14,7 +15,8 @@ per-timestep ones). A ``conditional`` diffusion backbone is evaluated by its
 sampling chain: the mean of 5 trajectories conditioned on each image, by
 DDIM under ``--ddim_steps`` > 0 (the checkpoint config's, unless the flag
 is given here), else by the full ancestral loop (run_tests.py:121-137). The noise comes from a generator seeded with
-``config.seed + 777``.
+``config.seed + 777``. Under ``--multihost`` the ranks share each batch
+(``harness.eval_parallel_setup``) and rank 0 writes.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from tedm_tpu_torch.eval.harness import (
     DATASET_KEYS,
     build_test_loaders,
     compute_output,
+    eval_parallel_setup,
     load_diffusion_experiment,
     load_experiment,
     make_conditional_sampler,
@@ -40,6 +43,7 @@ from tedm_tpu_torch.eval.harness import (
     print_metrics,
     save_output,
 )
+from tedm_tpu_torch.parallel import mesh
 from tedm_tpu_torch.utils.checkpoint import load_config
 from tedm_tpu_torch.utils.device import resolve_device, strict_fp32
 
@@ -76,6 +80,7 @@ def evaluate_experiment(
         fwd = make_predict_fn(task)
     loaders = build_test_loaders(config, nih_path, mon_path)
     generator = torch.Generator(device=dev).manual_seed(config.seed + 777)
+    shard = eval_parallel_setup(config)
 
     for key, loader in loaders.items():
         path = os.path.join(exp_dir, f"{key}_predictions.npz")
@@ -87,14 +92,16 @@ def evaluate_experiment(
             continue
         print(f"Testing {key} set")
         if conditional:
-            y_hat, y_star = predict_conditional_dataset(config, unet, sched, loader, generator, run_once=run_once)
+            y_hat, y_star = predict_conditional_dataset(config, unet, sched, loader, generator, run_once=run_once,
+                                                        shard=shard)
         else:
-            y_hat, y_star = predict_dataset(task, loader, generator, fold=task.fold, fwd=fwd)
+            y_hat, y_star = predict_dataset(task, loader, generator, fold=task.fold, fwd=fwd, shard=shard)
             if task.fold > 1:
                 y_hat = y_hat.mean(axis=0)  # ensemble over timesteps (app.py:79)
         out = compute_output(y_hat, y_star)
         print_metrics(key, out)
-        save_output(path, out)
+        if mesh.rank() == 0:
+            save_output(path, out)
         results[key] = out
     return results
 
@@ -107,12 +114,16 @@ def main(argv: Optional[Sequence[str]] = None, device: Union[str, torch.device] 
     parser.add_argument("--mon_path", type=str, default=None)
     parser.add_argument("--ddim_steps", type=int, default=None,
                         help="conditional backbones: DDIM steps (0: the full ancestral loop)")
+    parser.add_argument("--multihost", action="store_true",
+                        help="one rank of a data-parallel evaluation launched by torchrun")
     args = parser.parse_args(argv)
     if os.path.isdir(args.experiment):
         print("Experiment path identified as a directory")
     else:
         raise ValueError("Experiment path is not a directory")
     strict_fp32()
+    if args.multihost:
+        device = mesh.init_multihost(device)
     evaluate_experiment(args.experiment, args.rerun, args.nih_path, args.mon_path, device, args.ddim_steps)
 
 

@@ -4,12 +4,15 @@ auxiliary/postprocessing/testing_shared_weights.py).
 
     python -m tedm_tpu_torch.eval.testing_shared_weights --experiment <dir> [--rerun]
         [--nih_path DIR] [--mon_path DIR]
+    torchrun --nproc_per_node N -m tedm_tpu_torch.eval.testing_shared_weights --multihost ...
 
 For each set, on the card: ``{dataset}_timestep{t}_predictions.npz`` for
 every t of the checkpoint's ``t_steps_to_save``, and the ensembled
 ``{dataset}_predictions.npz`` (the sigmoid averaged over timesteps,
 thresholded at 0.5 in the metrics), with the reference's printing. The
 feature noise comes from a generator seeded with ``config.seed + 778``.
+Under ``--multihost`` the ranks share each batch
+(``harness.eval_parallel_setup``) and rank 0 writes.
 """
 
 from __future__ import annotations
@@ -25,12 +28,14 @@ from tedm_tpu_torch.eval.harness import (
     DATASET_KEYS,
     build_test_loaders,
     compute_output,
+    eval_parallel_setup,
     load_experiment,
     make_predict_fn,
     predict_dataset,
     print_metrics,
     save_output,
 )
+from tedm_tpu_torch.parallel import mesh
 from tedm_tpu_torch.utils.device import resolve_device, strict_fp32
 
 
@@ -56,6 +61,8 @@ def evaluate_shared_weights(
     fwd = make_predict_fn(task)
     loaders = build_test_loaders(config, nih_path, mon_path)
     generator = torch.Generator(device=dev).manual_seed(config.seed + 778)
+    shard = eval_parallel_setup(config)
+    writes = mesh.rank() == 0
     results = {}
 
     for key, loader in loaders.items():
@@ -63,16 +70,18 @@ def evaluate_shared_weights(
             print(f"{key} already tested")
             continue
         print(f"Testing {key} set")
-        y_hats, y_star = predict_dataset(task, loader, generator, fold=task.fold, fwd=fwd)
+        y_hats, y_star = predict_dataset(task, loader, generator, fold=task.fold, fwd=fwd, shard=shard)
         # y_hats (S, N, H, W, C), step-major as the reference's rearrange
         # '(b step) 1 h w -> step b 1 h w' (testing_shared_weights.py:120)
         for i, t in enumerate(config.t_steps_to_save):
             out = compute_output(y_hats[i], y_star)
             print_metrics(f"{key} {t}", out)
-            save_output(os.path.join(exp_dir, f"{key}_timestep{t}_predictions.npz"), out)
+            if writes:
+                save_output(os.path.join(exp_dir, f"{key}_timestep{t}_predictions.npz"), out)
         ens = compute_output(y_hats.mean(axis=0), y_star)
         print_metrics(key, ens)
-        save_output(os.path.join(exp_dir, f"{key}_predictions.npz"), ens)
+        if writes:
+            save_output(os.path.join(exp_dir, f"{key}_predictions.npz"), ens)
         results[key] = ens
     return results
 
@@ -83,12 +92,16 @@ def main(argv: Optional[Sequence[str]] = None, device: Union[str, torch.device] 
     parser.add_argument("--rerun", "-r", default=False, action="store_true")
     parser.add_argument("--nih_path", type=str, default=None)
     parser.add_argument("--mon_path", type=str, default=None)
+    parser.add_argument("--multihost", action="store_true",
+                        help="one rank of a data-parallel evaluation launched by torchrun")
     args = parser.parse_args(argv)
     if os.path.isdir(args.experiment):
         print("Experiment path identified as a directory")
     else:
         raise ValueError("Experiment path is not a directory")
     strict_fp32()
+    if args.multihost:
+        device = mesh.init_multihost(device)
     evaluate_shared_weights(args.experiment, args.rerun, args.nih_path, args.mon_path, device)
 
 

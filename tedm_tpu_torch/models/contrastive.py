@@ -154,6 +154,36 @@ def region_centres(
     return cx, cy
 
 
+def region_rows(
+    features: torch.Tensor, batch_size: int, centres: Tuple[torch.Tensor, torch.Tensor], n_regions: int = 20
+) -> torch.Tensor:
+    """The unit-norm 3x3 patch of each region centre of each image, laid out
+    (aug, region, image, C*9): the rows of ``local_region_loss`` before its
+    '(aug r b)' flatten. ``features`` is NCHW (2B, C, H, W), view 1 first."""
+    f = features.float()
+    cx, cy = centres
+    offs = torch.arange(-1, 2, device=f.device)
+    rows, cols = (cx.to(f.device)[:, None] + offs), (cy.to(f.device)[:, None] + offs)  # (R, 3)
+    # (2B, C, R, 3, 3): region r is rows[r] x cols[r]
+    regions = f[:, :, rows[:, :, None], cols[:, None, :]]
+    # '(aug b) c r h w -> aug r b (c h w)'
+    regions = regions.permute(0, 2, 1, 3, 4).reshape(2, batch_size, n_regions, -1).transpose(1, 2)
+    return regions / regions.norm(dim=3, keepdim=True)
+
+
+def region_loss(regions: torch.Tensor, batch_size: int, tau: float, n_regions: int = 20) -> torch.Tensor:
+    """The region-contrastive InfoNCE of the (2 * n_regions * batch_size, D)
+    unit rows laid out '(aug r b)' (reference: trainers/train_local_cl.py:60-77),
+    the reference's masked-exp quirk (a masked-out logit adds exp(0) = 1 to
+    the negative sum) kept."""
+    logits = regions @ regions.T / tau
+    pos, neg, has_pos = local_masks(batch_size, n_regions, regions.device)
+    pos_logits = (logits * pos).sum(-1)  # (2B-1, n)
+    neg_logits = torch.log(torch.exp(logits * neg).sum(-1))
+    per_offset = ((neg_logits - pos_logits) * has_pos).sum(-1) / has_pos.sum(-1)
+    return per_offset.sum()
+
+
 def local_region_loss(
     features: torch.Tensor,
     batch_size: int,
@@ -165,22 +195,8 @@ def local_region_loss(
     """Region-contrastive InfoNCE over ``n_regions`` 3x3 patches (reference:
     trainers/train_local_cl.py:60-77). ``features`` is NCHW (2B, C, H, W);
     the same centres ``(cx, cy)`` serve every image, drawn from
-    ``generator`` when not given. The reference's masked-exp quirk (a
-    masked-out logit adds exp(0) = 1 to the negative sum) is kept."""
-    f = features.float()
-    n2, c, hh, ww = f.shape
-    cx, cy = centres if centres is not None else region_centres(hh, ww, generator, n_regions)
-    offs = torch.arange(-1, 2, device=f.device)
-    rows, cols = (cx.to(f.device)[:, None] + offs), (cy.to(f.device)[:, None] + offs)  # (R, 3)
-    # (2B, C, R, 3, 3): region r is rows[r] x cols[r]
-    regions = f[:, :, rows[:, :, None], cols[:, None, :]]
-    # '(aug b) c r h w -> (aug r b) (c h w)'
-    regions = regions.permute(0, 2, 1, 3, 4).reshape(2, batch_size, n_regions, -1)
-    regions = regions.transpose(1, 2).reshape(2 * n_regions * batch_size, -1)
-    regions = regions / regions.norm(dim=1, keepdim=True)
-    logits = regions @ regions.T / tau
-    pos, neg, has_pos = local_masks(batch_size, n_regions, f.device)
-    pos_logits = (logits * pos).sum(-1)  # (2B-1, n)
-    neg_logits = torch.log(torch.exp(logits * neg).sum(-1))
-    per_offset = ((neg_logits - pos_logits) * has_pos).sum(-1) / has_pos.sum(-1)
-    return per_offset.sum()
+    ``generator`` when not given."""
+    _, _, hh, ww = features.shape
+    centres = centres if centres is not None else region_centres(hh, ww, generator, n_regions)
+    rows = region_rows(features, batch_size, centres, n_regions)
+    return region_loss(rows.reshape(2 * n_regions * batch_size, -1), batch_size, tau, n_regions)

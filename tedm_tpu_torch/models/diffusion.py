@@ -180,20 +180,25 @@ def sample_loop_with_snapshots(
     objective: str = "pred_noise",
     dynamic_threshold_percentile: float = 0.995,
     dtype: torch.dtype = torch.float32,
+    rows: Optional[slice] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The full T-step reverse trajectory from x_T ~ N(0, 1), drawn with
     every step's noise from ``generator`` (on the device to sample on).
     Returns (x_0, snapshots (n_snapshots, *shape)); the snapshot of slot i
     is the sample after the step at t = i * (T // n_snapshots), as the
-    reference keeps frames at t % stepsize == 0 (trainers/utils.py:88)."""
+    reference keeps frames at t % stepsize == 0 (trainers/utils.py:88).
+    ``rows``: sample those rows of ``shape`` only, every draw made for the
+    whole of ``shape`` and cut to them (a rank's share of a batch)."""
     T = sched.num_timesteps
     stepsize = max(T // n_snapshots, 1)
     dev = generator.device
-    x = torch.randn(shape, generator=generator, device=dev, dtype=dtype)
-    snaps = torch.zeros((n_snapshots, *shape), device=dev, dtype=dtype)
+    cut = (lambda a: a) if rows is None else (lambda a: a[rows])
+    x = cut(torch.randn(shape, generator=generator, device=dev, dtype=dtype))
+    snaps = torch.zeros((n_snapshots, *x.shape), device=dev, dtype=dtype)
     for t_scalar in range(T - 1, -1, -1):
-        t = torch.full((shape[0],), t_scalar, dtype=torch.long, device=dev)
-        x = sample_step(apply_fn, sched, x, t, generator=generator, objective=objective,
+        t = torch.full((x.shape[0],), t_scalar, dtype=torch.long, device=dev)
+        noise = None if rows is None else cut(_randn(shape, x, generator))
+        x = sample_step(apply_fn, sched, x, t, noise=noise, generator=generator, objective=objective,
                         dynamic_threshold_percentile=dynamic_threshold_percentile)
         if t_scalar % stepsize == 0:
             snaps[min(t_scalar // stepsize, n_snapshots - 1)] = x
@@ -208,10 +213,12 @@ def sample_loop(
     objective: str = "pred_noise",
     dynamic_threshold_percentile: float = 0.995,
     dtype: torch.dtype = torch.float32,
+    rows: Optional[slice] = None,
 ) -> torch.Tensor:
-    """The final sample in [-1, 1] of the full T-step reverse trajectory."""
+    """The final sample in [-1, 1] of the full T-step reverse trajectory
+    (of ``rows`` of it, as ``sample_loop_with_snapshots``)."""
     x, _ = sample_loop_with_snapshots(
-        apply_fn, sched, shape, generator, 1, objective, dynamic_threshold_percentile, dtype
+        apply_fn, sched, shape, generator, 1, objective, dynamic_threshold_percentile, dtype, rows
     )
     return x
 

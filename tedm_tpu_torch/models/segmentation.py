@@ -25,6 +25,7 @@ from tedm_tpu_torch.models.diffusion import normalize_to_neg_one_to_one, q_sampl
 from tedm_tpu_torch.models.unet import Unet
 from tedm_tpu_torch.ops.resize import nearest_resize
 from tedm_tpu_torch.ops.schedules import DiffusionSchedule
+from tedm_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 _step_rows: Dict[Tuple[Tuple[int, ...], int, torch.device], torch.Tensor] = {}
@@ -153,12 +154,18 @@ def flax_batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     (clamped at 0) over (B, H, W), every row counting, padding included, and
     moves the running statistics by 0.1 of the way to them, the running
     variance to the *biased* batch variance (``nn.BatchNorm2d`` takes the
-    unbiased one)."""
+    unbiased one). Under data parallelism the batch is the global one, as in
+    JAX's program over the sharded batch: the sums, sums of squares and
+    counts of every rank are added (``parallel.mesh.all_reduce_sum``, with
+    their gradient), and every rank moves its running statistics alike."""
     if not bn.training:
         return bn(x)
     xf = x.float()
-    mean = xf.mean(dim=(0, 2, 3))
-    var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+    n = torch.full((1,), float(xf.shape[0] * xf.shape[2] * xf.shape[3]), device=xf.device)
+    c = xf.shape[1]
+    sums = all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)), n]))
+    mean = sums[:c] / sums[-1]
+    var = (sums[c:2 * c] / sums[-1] - mean * mean).clamp(min=0.0)
     with torch.no_grad():
         bn.running_mean.mul_(0.9).add_(0.1 * mean)
         bn.running_var.mul_(0.9).add_(0.1 * var)

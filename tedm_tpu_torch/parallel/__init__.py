@@ -1,0 +1,10 @@
+"""Data parallelism over ``torch.distributed`` (port of ``tedm_tpu/parallel``,
+its ``data`` axis): see ``mesh``."""
+
+from tedm_tpu_torch.parallel.mesh import (
+    DataParallel,
+    data_parallel_setup,
+    init_multihost,
+    make_mesh,
+    param_shardings,
+)

@@ -10,6 +10,13 @@ Training runs on the card; ``main(argv, device="cpu")`` runs the plain
 PyTorch path on the CPU. The flags whose features the port does not have
 yet (ROADMAP item A.5h) raise ``NotImplementedError`` naming their
 item.
+
+Data parallel (``parallel/mesh.py``): one process per card, launched by
+torchrun with ``--multihost``; ``--batch_size`` is per rank, so the global
+batch is the number of ranks times it:
+
+    torchrun --nproc_per_node 8 -m tedm_tpu_torch.train --multihost \
+        --experiment img_only [--param_sharding fsdp] ...
 """
 
 from __future__ import annotations
@@ -19,17 +26,19 @@ from typing import Callable, Dict, Optional, Sequence, Union
 import torch
 
 from tedm_tpu_torch.config import Config, config_from_args
+from tedm_tpu_torch.parallel import mesh
 from tedm_tpu_torch.utils.device import strict_fp32
 
 DIFFUSION_EXPERIMENTS = ("img_only", "joint", "conditional", "joint_and_cond")
 HEAD_EXPERIMENTS = ("LEDM", "LEDMe", "TEDM")
 
-# (flag, is it set, the ROADMAP item that ports its feature)
+# (flag, is it set, the ROADMAP item that ports its feature): the mesh's
+# axes other than 'data' (tensor parallel, spatial sharding) and the other
+# input pipelines
 NOT_PORTED = (
-    ("--multihost", lambda c: c.multihost, "A.5h"),
-    ("--mesh_shape", lambda c: bool(c.mesh_shape), "A.5h"),
-    ("--param_sharding", lambda c: c.param_sharding != "replicated", "A.5h"),
+    ("--param_sharding", lambda c: c.param_sharding == "tp", "A.5h"),
     ("--shard_spatial", lambda c: c.shard_spatial, "A.5h"),
+    ("--mesh_axes", lambda c: tuple(c.mesh_axes) != ("data",), "A.5h"),
     ("--data_backend", lambda c: c.data_backend != "threads", "A.5h"),
 )
 
@@ -60,6 +69,9 @@ def dispatch(config: Config, device: Union[str, torch.device] = "cuda") -> None:
     for flag, is_set, item in NOT_PORTED:
         if is_set(config):
             raise NotImplementedError(f"{flag} is not ported yet: ROADMAP item {item}")
+    if config.multihost:
+        device = mesh.init_multihost(device)
+    mesh.make_mesh(tuple(config.mesh_shape), tuple(config.mesh_axes))
     print(f"Experiment folder: {config.log_dir}")
     mains[config.experiment](config, device)
 

@@ -12,13 +12,14 @@ without one as it is. The whole UNet is trained by the shared loop
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple, Union
+from typing import ClassVar, Dict, Optional, Tuple, Union
 
 import torch
 
 from tedm_tpu_torch.config import Config
 from tedm_tpu_torch.data.pipeline import build_dataloaders
 from tedm_tpu_torch.models.unet import Unet
+from tedm_tpu_torch.parallel import mesh
 from tedm_tpu_torch.trainers.common import compute_dtype, init_seeded, train_segmentation, unet_kernels
 from tedm_tpu_torch.utils.device import resolve_device
 from tedm_tpu_torch.utils.logging import MetricsLogger
@@ -30,6 +31,7 @@ class BaselineTask:
     fp32 logits (B, out_channels, H, W); the noise arguments of the heads'
     tasks are accepted and unused."""
 
+    TRAINED: ClassVar[str] = "unet"  # the field of the trained module
     unet: Unet
     fold: int = 1
     t_steps: Tuple[int, ...] = ()
@@ -71,6 +73,7 @@ def main(config: Config, device: Union[str, torch.device] = "cuda") -> None:
         "JSRT", config.data_dir, config.img_size, config.batch_size,
         config.num_workers, config.n_labelled_images, seed=config.seed,
         synthetic=config.synthetic_data, splits_dir=config.splits_dir,
+        **mesh.loader_shard(),
     )
     print(f"Loaded {len(loaders['train'].indices)} training and "
           f"{len(loaders['val'].indices)} validation images")

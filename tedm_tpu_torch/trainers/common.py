@@ -37,18 +37,27 @@ it, and the first step after the unfreeze would come out 0.64 to about 3
 times JAX's). JAX also masks the update, since AdamW's decoupled decay
 would shrink a frozen parameter: here the frozen parameters are put back
 after the step.
+
+Under data parallelism (``parallel/mesh.py``) ``trained`` is wrapped for DDP
+or FSDP, each rank reads its shard of the train set and draws its own
+noise, and the loss is the masked mean over the valid rows of every rank
+(``mesh.global_share``): its share on each rank, the global value in the
+logs. The best-validation checkpoint, the early stop and a signal are
+decided on values reduced over the ranks; rank 0 writes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Any, Callable, Dict, Iterable, List, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from tedm_tpu_torch.config import Config
 from tedm_tpu_torch.ops import metrics as M
+from tedm_tpu_torch.parallel import mesh
 from tedm_tpu_torch.utils.checkpoint import checkpoint_exists, load_checkpoint, save_checkpoint
 from tedm_tpu_torch.utils.interrupt import graceful_shutdown
 from tedm_tpu_torch.utils.logging import MetricsLogger
@@ -117,34 +126,44 @@ def _fold(task, y: torch.Tensor, valid: torch.Tensor) -> Tuple[torch.Tensor, tor
     return y, valid
 
 
-def make_train_step(task, optimizer: torch.optim.Optimizer, frozen: Sequence[torch.nn.Parameter] = ()):
+def make_train_step(task, optimizer: torch.optim.Optimizer, frozen: Sequence[torch.nn.Parameter] = (),
+                    dp: Optional[mesh.DataParallel] = None):
     """One training step of ``task``'s trained module: ``step(x, y, valid,
     generator=None, noise=None, freeze=False) -> (loss, per_fold)``, device
     scalars; the noise is as in ``SegTask.apply``. ``per_fold`` is the masked
     mean loss of each folded timestep (TEDM per-timestep logging, reference:
     train_baseline.py:56-58,70-73). With ``freeze`` the ``frozen`` parameters
-    get zero gradients and keep their values (module docstring)."""
+    get zero gradients and keep their values (module docstring). Each rank
+    back-propagates ``world`` times its share of the global masked mean,
+    which DDP's mean over the ranks turns into the global gradient (in one
+    process: the masked mean itself), and both values come back global;
+    ``dp`` reduces the gradients FSDP leaves to it."""
     frozen = list(frozen)
 
     def step(x, y, valid, generator=None, noise=None, freeze=False):
         task.trained.train()
         logits = task.apply(x, generator=generator, noise=noise)
-        per_img, loss = masked_bce_per_image(logits, *_fold(task, y, valid))
+        y_f, valid_f = _fold(task, y, valid)
+        per_img, _ = masked_bce_per_image(logits, y_f, valid_f)
+        loss = mesh.global_share(per_img, valid_f)
         optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        (loss * mesh.world()).backward()
+        if dp is not None:
+            dp.finish_grads()
         if freeze and frozen:
             with torch.no_grad():
                 held = [p for p in frozen if p.grad is not None]
-                torch._foreach_zero_([p.grad for p in held])
-                kept = [p.detach().clone() for p in held]
+                torch._foreach_zero_(mesh.local_tensors(p.grad for p in held))
+                kept = [mesh.local(p).detach().clone() for p in held]
             optimizer.step()
             with torch.no_grad():
-                torch._foreach_copy_([p.detach() for p in held], kept)
+                torch._foreach_copy_([mesh.local(p).detach() for p in held], kept)
         else:
             optimizer.step()
         w = valid.float()
-        per_fold = (per_img.detach().reshape(task.fold, -1) * w).sum(dim=1) / w.sum().clamp(min=1.0)
-        return loss.detach(), per_fold
+        per_fold = (per_img.detach().reshape(task.fold, -1) * w).sum(dim=1)
+        sums = mesh.reduced(torch.cat([loss.detach()[None], per_fold, w.sum()[None]]))
+        return sums[0], sums[1:-1] / sums[-1].clamp(min=1.0)
 
     return step
 
@@ -186,12 +205,15 @@ def validate(config: Config, task, loader, generator: torch.Generator) -> Dict[s
         recs.append(r.cpu().numpy())
         if i + 1 == config.max_val_steps or config.debug:
             break
-    return {
+    val = {
         "val/loss": float(np.sum(losses) / max(np.sum(weights), 1e-9)),
         "val/dice": float(np.nanmean(np.concatenate(dices))),
         "val/precision": float(np.nanmean(np.concatenate(precs))),
         "val/recall": float(np.nanmean(np.concatenate(recs))),
     }
+    # every rank read the same (unsharded) batches with its own noise: the
+    # mean over the ranks, the same on each, decides the checkpoint
+    return dict(zip(val, (v / mesh.world() for v in mesh.host_sum(list(val.values())))))
 
 
 def train_segmentation(
@@ -209,26 +231,35 @@ def train_segmentation(
     ``frozen`` parameters stay as they are in the steps before
     ``unfreeze_at`` (module docstring)."""
     dev = next(task.trained.parameters()).device
-    optimizer = make_optimizer(config, task.trained.parameters())
-    train_step = make_train_step(task, optimizer, frozen)
-    step = 0
+    dp = mesh.data_parallel_setup(config, dev)
+    step, state = 0, None
     if config.resume_path and checkpoint_exists(config.resume_path):
         state, _ = load_checkpoint(config.resume_path, config, map_location=dev)
         for name, module in task.modules.items():
             module.load_state_dict(state[name])
-        optimizer.load_state_dict(state["opt_state"])
         step = int(state["step"])
         print(f"Resumed from {config.resume_path} at step {step}")
+    # the trained module wrapped for DDP or FSDP; FSDP replaces its
+    # parameters, so the frozen ones are found again by name
+    names = {id(p): n for n, p in task.trained.named_parameters()}
+    frozen_names = [names[id(p)] for p in frozen]
+    raw = task.trained
+    task = dataclasses.replace(task, **{task.TRAINED: dp.wrap(raw, find_unused=True)})
+    params = dict(raw.named_parameters())
+    optimizer = make_optimizer(config, dp.optimizer_params(task.trained.parameters()))
+    if state is not None:
+        dp.load_optimizer_state(optimizer, state["opt_state"])
+    train_step = make_train_step(task, optimizer, [params[n] for n in frozen_names], dp)
 
-    generator = torch.Generator(device=dev).manual_seed(config.seed)
+    generator = torch.Generator(device=dev).manual_seed(mesh.rank_seed(config.seed))
     best_val_loss = float("inf")
     train_losses: List[torch.Tensor] = []
     fold_losses: List[torch.Tensor] = []
     t0, imgs_seen = time.time(), 0
 
-    def make_state():
-        return {**{name: m.state_dict() for name, m in task.modules.items()},
-                "opt_state": optimizer.state_dict(), "step": step}
+    def make_state():  # a collective under FSDP: every rank builds it, rank 0 writes it
+        return {**{name: dp.state_dict(m) for name, m in task.modules.items()},
+                "opt_state": dp.optimizer_state(optimizer), "step": step}
 
     with graceful_shutdown() as should_stop, StepTrace(config.profile_dir, dev) as tracer:
         for batch in loaders["train"].repeat():
@@ -248,6 +279,7 @@ def train_segmentation(
                 # read the window's losses (waiting for its steps) before the clock
                 window_loss = torch.stack(train_losses).mean().item()
                 dt = time.time() - t0
+                imgs_seen = mesh.host_sum([imgs_seen])[0]
                 logs = {"train/loss": window_loss, "train/imgs_per_sec": imgs_seen / max(dt, 1e-9)}
                 if task.fold > 1:
                     mean_fold = torch.stack(fold_losses).mean(dim=0).tolist()
@@ -269,7 +301,7 @@ def train_segmentation(
             if config.ckpt_every and step % config.ckpt_every == 0:
                 save_checkpoint(f"{config.log_dir}/step_{step}", make_state(), config)
 
-            if should_stop():
+            if mesh.host_any(should_stop()):
                 save_checkpoint(f"{config.log_dir}/interrupted", make_state(), config)
                 print(f"[interrupt] saved {config.log_dir}/interrupted at step {step}")
                 return

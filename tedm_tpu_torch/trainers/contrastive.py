@@ -31,6 +31,12 @@ else from ``--global_model_path``, trained by the shared loop
 get zero gradients, so its backward runs through the whole UNet. Its
 checkpoint is the baseline's, ``{"unet"}``, which ``eval/harness.py`` and
 ``Predictor`` restore.
+
+Under data parallelism (``parallel/mesh.py``) each rank draws the views of
+its shard of the batch, and the losses take their negatives from the global
+batch as JAX's program does: NT-Xent over every rank's features laid out
+view 1 of every rank, then view 2; the region loss over every rank's patches
+laid out (aug, region, global image), at rank 0's region centres.
 """
 
 from __future__ import annotations
@@ -43,8 +49,9 @@ import torch
 
 from tedm_tpu_torch.config import Config
 from tedm_tpu_torch.data.pipeline import build_dataloaders
-from tedm_tpu_torch.models.contrastive import GlobalCL, LocalCL, global_nt_xent, local_region_loss
+from tedm_tpu_torch.models.contrastive import GlobalCL, LocalCL, global_nt_xent, region_centres, region_loss, region_rows
 from tedm_tpu_torch.ops.augment import augment_and_concat, brightness_contrast, crop_batch
+from tedm_tpu_torch.parallel import mesh
 from tedm_tpu_torch.trainers import baseline
 from tedm_tpu_torch.trainers.common import init_seeded, to_nchw, train_segmentation, unet_kernels
 from tedm_tpu_torch.utils.checkpoint import checkpoint_exists, load_checkpoint, save_checkpoint
@@ -96,20 +103,36 @@ class CLSteps(NamedTuple):
     eval_step: Callable[..., torch.Tensor]
 
 
-def make_steps(config: Config, model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> CLSteps:
+def make_steps(config: Config, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+               forward: Optional[torch.nn.Module] = None, dp: Optional[mesh.DataParallel] = None) -> CLSteps:
+    """The steps of ``model``, called through ``forward`` (its DDP or FSDP
+    wrapper, ``dp``'s) when given. Every rank computes the global loss from
+    the gathered features and back-propagates it whole: its own rows' part
+    of the gradient, ``world`` times over, which DDP's mean over the ranks
+    turns into the global gradient."""
+    forward = forward if forward is not None else model
+
     def loss_of(views, generator, centres):
-        feats = model(views)
+        feats = forward(views)
+        b, n = views.shape[0] // 2, mesh.world()
         if isinstance(model, GlobalCL):
-            return global_nt_xent(feats, views.shape[0] // 2, config.tau)
-        return local_region_loss(feats, views.shape[0] // 2, config.tau, centres=centres, generator=generator)
+            # (rank, view, row) -> (view, rank, row): JAX's layout of the global batch
+            f = mesh.gather_rows(feats).reshape(n, 2, b, -1).transpose(0, 1).reshape(2 * n * b, -1)
+            return global_nt_xent(f, n * b, config.tau)
+        if centres is None:  # every rank draws them; rank 0's serve the global batch
+            centres = tuple(mesh.broadcast(c) for c in region_centres(*feats.shape[2:], generator))
+        rows = mesh.gather_rows(region_rows(feats, b, centres)[None])  # (rank, aug, region, row, D)
+        return region_loss(rows.permute(1, 2, 0, 3, 4).reshape(-1, rows.shape[-1]), n * b, config.tau)
 
     def train_step(x, generator=None, views=None, centres=None):
-        model.train()
+        forward.train()
         if views is None:
             views = augment_and_concat(x, generator)
         loss = loss_of(views, generator, centres)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if dp is not None:
+            dp.finish_grads()
         optimizer.step()
         return loss.detach()
 
@@ -117,7 +140,7 @@ def make_steps(config: Config, model: torch.nn.Module, optimizer: torch.optim.Op
     def eval_step(x, generator):
         # eval mode: BatchNorm's running statistics, none updated (the
         # reference's validate() calls model.eval(), train_local_cl.py)
-        model.eval()
+        forward.eval()
         return loss_of(augment_and_concat(x, generator), generator, None)
 
     return CLSteps(train_step, eval_step)
@@ -138,28 +161,33 @@ def _train_cl(config: Config, model: torch.nn.Module, device: torch.device) -> N
     unlabelled CXR14 batches, two augmented views, the feature loss,
     best-val checkpoints; ``--resume_path``, ``--ckpt_every`` and a
     resumable checkpoint on SIGTERM/SIGINT as in the shared loop."""
-    optimizer = torch.optim.Adam(trainable_parameters(model), lr=config.lr)
-    steps = make_steps(config, model, optimizer)
-    loaders = build_dataloaders(
-        "CXR14", config.data_dir, config.img_size, config.batch_size, config.num_workers,
-        seed=config.seed, synthetic=config.synthetic_data, splits_dir=config.splits_dir, drop_last=True,
-    )
-    logger = MetricsLogger(config.log_dir, config, enabled=not config.debug)
-    step = 0
+    dp = mesh.data_parallel_setup(config, device)
+    step, state = 0, None
     if config.resume_path and checkpoint_exists(config.resume_path):
         state, _ = load_checkpoint(config.resume_path, config, map_location=device)
         model.load_state_dict(state["params"])
-        optimizer.load_state_dict(state["opt_state"])
         step = int(state["step"])
         print(f"Resumed from {config.resume_path} at step {step}")
+    trainable_parameters(model)  # before the wrap: DDP reduces what takes gradients
+    forward = dp.wrap(model)
+    optimizer = torch.optim.Adam(dp.optimizer_params(p for p in model.parameters() if p.requires_grad), lr=config.lr)
+    if state is not None:
+        dp.load_optimizer_state(optimizer, state["opt_state"])
+    steps = make_steps(config, model, optimizer, forward, dp)
+    loaders = build_dataloaders(
+        "CXR14", config.data_dir, config.img_size, config.batch_size, config.num_workers,
+        seed=config.seed, synthetic=config.synthetic_data, splits_dir=config.splits_dir, drop_last=True,
+        **mesh.loader_shard(),
+    )
+    logger = MetricsLogger(config.log_dir, config, enabled=not config.debug)
 
-    generator = torch.Generator(device=device).manual_seed(config.seed)
+    generator = torch.Generator(device=device).manual_seed(mesh.rank_seed(config.seed))
     best_val = float("inf")
     train_losses = []
     t0, imgs = time.time(), 0
 
-    def make_state():
-        return {"params": model.state_dict(), "opt_state": optimizer.state_dict(), "step": step}
+    def make_state():  # a collective under FSDP: every rank builds it, rank 0 writes it
+        return {"params": dp.state_dict(model), "opt_state": dp.optimizer_state(optimizer), "step": step}
 
     with graceful_shutdown() as should_stop:
         for batch in loaders["train"].repeat():
@@ -171,6 +199,7 @@ def _train_cl(config: Config, model: torch.nn.Module, device: torch.device) -> N
                 # read the window's losses (waiting for its steps) before the clock
                 window_loss = torch.stack(train_losses).mean().item()
                 dt = time.time() - t0
+                imgs = mesh.host_sum([imgs])[0]
                 logger.log({"train/loss": window_loss, "train/imgs_per_sec": imgs / max(dt, 1e-9)}, step)
                 train_losses, t0, imgs = [], time.time(), 0
 
@@ -181,7 +210,8 @@ def _train_cl(config: Config, model: torch.nn.Module, device: torch.device) -> N
                     n += 1
                     if i + 1 == config.max_val_steps or config.debug:
                         break
-                vloss /= max(n, 1)
+                # the same on every rank (the loss of the gathered batch), reduced all the same
+                vloss = mesh.host_sum([vloss / max(n, 1)])[0] / mesh.world()
                 logger.log({"val/loss": vloss}, step)
                 if vloss < best_val and not config.debug:
                     best_val = vloss
@@ -190,7 +220,7 @@ def _train_cl(config: Config, model: torch.nn.Module, device: torch.device) -> N
             if config.ckpt_every and step % config.ckpt_every == 0:
                 save_checkpoint(f"{config.log_dir}/step_{step}", make_state(), config)
 
-            if should_stop():
+            if mesh.host_any(should_stop()):
                 save_checkpoint(f"{config.log_dir}/interrupted", make_state(), config)
                 print(f"[interrupt] saved {config.log_dir}/interrupted at step {step}")
                 break
@@ -249,10 +279,10 @@ def main_finetune(config: Config, device: Union[str, torch.device] = "cuda") -> 
     loaders = build_dataloaders(
         "JSRT", config.data_dir, config.img_size, config.batch_size,
         config.num_workers, config.n_labelled_images, seed=config.seed,
-        synthetic=config.synthetic_data, splits_dir=config.splits_dir,
+        synthetic=config.synthetic_data, splits_dir=config.splits_dir, **mesh.loader_shard(),
     )
     if config.augment_at_finetuning:
-        loaders = dict(loaders, train=AugmentedLoader(loaders["train"], config.seed))
+        loaders = dict(loaders, train=AugmentedLoader(loaders["train"], mesh.rank_seed(config.seed)))
     frozen = frozen_parameters(task) if config.unfreeze_weights_at_step > 0 else ()
     logger = MetricsLogger(config.log_dir, config, enabled=not config.debug)
     train_segmentation(config, task, loaders, logger, frozen, config.unfreeze_weights_at_step)

@@ -14,7 +14,7 @@ only the head's parameters are in the optimizer (:46).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple, Union
+from typing import ClassVar, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -23,6 +23,7 @@ from tedm_tpu_torch.data.pipeline import build_dataloaders
 from tedm_tpu_torch.models.segmentation import PixelClassifier, extract_features
 from tedm_tpu_torch.models.unet import Unet
 from tedm_tpu_torch.ops.schedules import DiffusionSchedule, make_schedule
+from tedm_tpu_torch.parallel import mesh
 from tedm_tpu_torch.trainers.common import compute_dtype, init_seeded, train_segmentation, unet_kernels
 from tedm_tpu_torch.utils.checkpoint import checkpoint_exists, load_checkpoint, load_config
 from tedm_tpu_torch.utils.device import resolve_device
@@ -68,6 +69,7 @@ class SegTask:
     ``apply`` maps an image batch to logits; for a folded head (TEDM) they
     have ``fold`` * B rows, step-major."""
 
+    TRAINED: ClassVar[str] = "classifier"  # the field of the trained module
     unet: Unet
     classifier: torch.nn.Module
     sched: DiffusionSchedule
@@ -137,6 +139,7 @@ def main(config: Config, device: Union[str, torch.device] = "cuda") -> None:
         "JSRT", config.data_dir, config.img_size, config.batch_size,
         config.num_workers, config.n_labelled_images, seed=config.seed,
         synthetic=config.synthetic_data, splits_dir=config.splits_dir,
+        **mesh.loader_shard(),
     )
     logger = MetricsLogger(config.log_dir, config, enabled=not config.debug)
     train_segmentation(config, task, loaders, logger)

@@ -16,10 +16,21 @@ trajectory, with the EMA weights when they exist. Checkpoints hold
 
 t and the noise come from a ``torch.Generator`` on the device, seeded from
 ``config.seed``, or are given to the step.
+
+Under data parallelism (``parallel/mesh.py``) the UNet is wrapped for DDP or
+FSDP (the EMA sharded as its weights are), each rank reads its shard of the
+train set and draws its own t and noise, and the loss is the masked mean
+over the valid rows of every rank: each rank back-propagates ``world`` times
+its share, weighted by its valid rows over the global count, microbatch by
+microbatch under ``--grad_accum`` with the gradient reduction on the last
+one only. The logged loss is the global one; the best-validation
+checkpoint and a signal are decided on values reduced over the ranks, and
+rank 0 writes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import time
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
@@ -37,6 +48,7 @@ from tedm_tpu_torch.models.diffusion import (
 )
 from tedm_tpu_torch.models.unet import Unet
 from tedm_tpu_torch.ops.schedules import DiffusionSchedule, make_schedule
+from tedm_tpu_torch.parallel import mesh
 from tedm_tpu_torch.trainers.common import compute_dtype, init_seeded, make_optimizer, to_nchw, unet_kernels
 from tedm_tpu_torch.utils.checkpoint import checkpoint_exists, load_checkpoint, save_checkpoint
 from tedm_tpu_torch.utils.device import resolve_device
@@ -92,7 +104,9 @@ def make_steps(
     sched: DiffusionSchedule,
     optimizer: torch.optim.Optimizer,
     ema: Optional[Unet] = None,
+    dp: Optional[mesh.DataParallel] = None,
 ) -> Steps:
+    """``unet`` is the module to call (a DDP or FSDP one under ``dp``)."""
     conditional = config.experiment in CONDITIONAL
     x_ch, _ = mode_channels(config)
     # joint x has (img, seg) channels: the loss is also split per channel,
@@ -123,32 +137,36 @@ def make_steps(
     def train_step(x, cond, valid, generator=None, t=None, noise=None):
         optimizer.zero_grad(set_to_none=True)
         valid = valid.float()
-        if accum <= 1:
-            loss, ch_losses = loss_of(x, cond, valid, t, noise, generator)
-            loss.backward()
-        else:
-            # microbatch i's loss is the masked mean over its own rows; weighted
-            # by w_i = max(its valid count, 1) and divided by the global count
-            # it adds up to the global masked mean, loss and gradients alike.
-            # Each backward frees its microbatch's activations.
-            mb = x.shape[0] // accum
-            denom = valid.sum().clamp(min=1.0)
-            loss, ch_losses = 0.0, 0.0
-            for i in range(accum):
-                rows = slice(i * mb, (i + 1) * mb)
-                pick = lambda a: None if a is None else a[rows]
+        n = mesh.world()
+        # microbatch i's loss is the masked mean over its own rows; weighted
+        # by w_i = max(its valid count, 1) and divided by the global count
+        # (every rank's rows) it adds up to the global masked mean, loss and
+        # gradients alike (at one microbatch in one process, w_i = 1). Each
+        # backward frees its microbatch's activations; the gradients are
+        # reduced over the ranks in the last one.
+        mb = x.shape[0] // accum
+        denom = mesh.reduced(valid.sum()).clamp(min=1.0)
+        loss, ch_losses = 0.0, 0.0
+        for i in range(accum):
+            rows = slice(i * mb, (i + 1) * mb)
+            pick = lambda a: None if a is None else a[rows]
+            with dp.no_sync(unet, sync=i == accum - 1) if dp is not None else contextlib.nullcontext():
                 loss_i, ch_i = loss_of(
                     x[rows], cond[rows] if conditional else cond, valid[rows],
                     pick(t), pick(noise), generator,
                 )
                 w_i = valid[rows].sum().clamp(min=1.0) / denom
-                (loss_i * w_i).backward()
-                loss = loss + w_i * loss_i.detach()
-                ch_losses = ch_losses + w_i * ch_i.detach()
+                (loss_i * (w_i * n)).backward()
+            loss = loss + w_i * loss_i.detach()
+            ch_losses = ch_losses + w_i * ch_i.detach()
+        sums = mesh.reduced(torch.cat([loss.reshape(1), ch_losses.reshape(-1)]))
+        loss, ch_losses = sums[0], sums[1:]
+        if dp is not None:
+            dp.finish_grads()
         optimizer.step()
         if ema is not None:
             with torch.no_grad():
-                e, p = list(ema.parameters()), list(unet.parameters())
+                e, p = mesh.local_tensors(ema.parameters()), mesh.local_tensors(unet.parameters())
                 torch._foreach_mul_(e, ema_decay)
                 torch._foreach_add_(e, p, alpha=1.0 - ema_decay)
         return loss.detach(), ch_losses.detach()
@@ -212,24 +230,23 @@ def validate(
         if i + 1 == config.max_val_steps or config.debug:
             break
     logger.log_images("val/samples", steps.sample_grid(model, cond0, generator, min(config.n_sampled_imgs, 10)), step)
-    return float(np.sum(losses) / max(np.sum(weights), 1e-9))
+    # every rank read the same (unsharded) batches with its own noise: the
+    # mean over the ranks, the same on each, decides the checkpoint
+    return mesh.host_sum([float(np.sum(losses) / max(np.sum(weights), 1e-9))])[0] / mesh.world()
 
 
 def main(config: Config, device: Union[str, torch.device] = "cuda") -> None:
     dev = resolve_device(device)
+    dp = mesh.data_parallel_setup(config, dev)
     unet = build_model(config).to(dev)
     sched = make_schedule(
         config.timesteps, config.beta_schedule, config.p2_loss_weight_gamma, config.p2_loss_weight_k,
     ).to(dev)
-    # --weight_decay as the supervised loop honours it; the reference
-    # diffusion trainer is plain Adam, the default
-    optimizer = make_optimizer(config, unet.parameters())
-    step = 0
+    step, state = 0, None
     ema_state = None
     if config.resume_path and checkpoint_exists(config.resume_path):
         state, _ = load_checkpoint(config.resume_path, config, map_location=dev)
         unet.load_state_dict(state["params"])
-        optimizer.load_state_dict(state["opt_state"])
         step = int(state["step"])
         ema_state = state.get("ema_params")
         print(f"Resumed from {config.resume_path} at step {step}")
@@ -240,20 +257,28 @@ def main(config: Config, device: Union[str, torch.device] = "cuda") -> None:
         ema = copy.deepcopy(unet).requires_grad_(False)
         if ema_state is not None:
             ema.load_state_dict(ema_state)
+        if dp.mode == "fsdp":
+            dp.shard(ema)  # sharded as the weights it follows
+    model = dp.wrap(unet)
+    # --weight_decay as the supervised loop honours it; the reference
+    # diffusion trainer is plain Adam, the default
+    optimizer = make_optimizer(config, dp.optimizer_params(unet.parameters()))
+    if state is not None:
+        dp.load_optimizer_state(optimizer, state["opt_state"])
 
     # the JSRT modes need masks (reference: train_base_diffusion.py:26-32)
     loaders = build_dataloaders(
         "CXR14" if config.experiment == "img_only" else "JSRT", config.data_dir, config.img_size, config.batch_size, config.num_workers,
-        seed=config.seed, synthetic=config.synthetic_data, splits_dir=config.splits_dir,
+        seed=config.seed, synthetic=config.synthetic_data, splits_dir=config.splits_dir, **mesh.loader_shard(),
     )
     logger = MetricsLogger(config.log_dir, config, enabled=not config.debug)
-    steps = make_steps(config, unet, sched, optimizer, ema)
-    generator = torch.Generator(device=dev).manual_seed(config.seed)
+    steps = make_steps(config, model, sched, optimizer, ema, dp)
+    generator = torch.Generator(device=dev).manual_seed(mesh.rank_seed(config.seed))
 
-    def full_state() -> Dict[str, Any]:
-        state = {"params": unet.state_dict(), "opt_state": optimizer.state_dict(), "step": step}
+    def full_state() -> Dict[str, Any]:  # a collective under FSDP: every rank builds it, rank 0 writes it
+        state = {"params": dp.state_dict(unet), "opt_state": dp.optimizer_state(optimizer), "step": step}
         if use_ema:
-            state["ema_params"] = ema.state_dict()
+            state["ema_params"] = dp.state_dict(ema)
         return state
 
     best_val_loss = float("inf")
@@ -279,6 +304,7 @@ def main(config: Config, device: Union[str, torch.device] = "cuda") -> None:
                 # read the window's losses (waiting for its steps) before the clock
                 window_loss = torch.stack(train_losses).mean().item()
                 dt = time.time() - t0
+                imgs = mesh.host_sum([imgs])[0]
                 metrics = {"train/loss": window_loss, "train/imgs_per_sec": imgs / max(dt, 1e-9)}
                 if channel_losses:
                     ch = torch.stack(channel_losses).mean(dim=0).tolist()
@@ -289,7 +315,7 @@ def main(config: Config, device: Union[str, torch.device] = "cuda") -> None:
 
             if step % config.val_freq == 0 or config.debug:
                 # the EMA weights, when kept, are the ones downstream loaders serve
-                vloss = validate(config, steps, ema if use_ema else unet, loaders["val"],
+                vloss = validate(config, steps, ema if use_ema else model, loaders["val"],
                                  generator, logger, step)
                 logger.log({"val/loss": vloss}, step)
                 if vloss < best_val_loss and not config.debug:
@@ -299,7 +325,7 @@ def main(config: Config, device: Union[str, torch.device] = "cuda") -> None:
             if config.ckpt_every and step % config.ckpt_every == 0:
                 save_checkpoint(f"{config.log_dir}/step_{step}", full_state(), config)
 
-            if should_stop():
+            if mesh.host_any(should_stop()):
                 save_checkpoint(f"{config.log_dir}/interrupted", full_state(), config)
                 print(f"[interrupt] saved {config.log_dir}/interrupted at step {step}")
                 break

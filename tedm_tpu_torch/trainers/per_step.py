@@ -8,7 +8,9 @@ Step_10, ... experiment directories) runs it at one timestep each. Under
 ``--standardize_features`` the probe standardises its input by per-channel
 moments over (batch, space) of the train set, padding rows left out, from a
 pre-pass over the train loader whose noise comes from a generator seeded
-from ``config.seed``. (The reference computes per-(channel, pixel) moments
+from ``config.seed`` (each rank's own under data parallelism, over its
+shard, the sums then added over the ranks: the moments of the whole set,
+as one process takes them). (The reference computes per-(channel, pixel) moments
 and then applies the probe to the raw features, :30-31, :104-113; without
 the flag the port, as the JAX package, applies it to the raw features too.)
 """
@@ -22,6 +24,7 @@ import torch
 from tedm_tpu_torch.config import Config
 from tedm_tpu_torch.data.pipeline import build_dataloaders
 from tedm_tpu_torch.models.segmentation import LinearProbe, extract_features, masked_feature_sums
+from tedm_tpu_torch.parallel import mesh
 from tedm_tpu_torch.trainers.common import init_seeded, to_nchw, train_segmentation
 from tedm_tpu_torch.trainers.datasetdm import SegTask, load_backbone
 from tedm_tpu_torch.utils.device import resolve_device
@@ -54,7 +57,7 @@ def build_task(
     task = SegTask(unet=unet, classifier=probe, sched=sched, t_steps=t_steps,
                    normalize=config.normalize and not config.extract_unnormalized)
     if config.standardize_features and compute_stats:
-        generator = torch.Generator(device=dev).manual_seed(config.seed)
+        generator = torch.Generator(device=dev).manual_seed(mesh.rank_seed(config.seed))
         acc = None
         with torch.no_grad():
             for batch in loaders["train"]:
@@ -62,7 +65,7 @@ def build_task(
                                          generator=generator, normalize=task.normalize)
                 sums = masked_feature_sums(feats, n_steps, torch.from_numpy(batch["valid"]).to(dev))
                 acc = sums if acc is None else tuple(a + b for a, b in zip(acc, sums))
-            total, squares, count = acc
+            total, squares, count = (mesh.reduced(a) for a in acc)
             mean = total / count
             probe.mean.copy_(mean)
             probe.std.copy_((squares / count - mean * mean).clamp(min=0.0).sqrt() + 1e-6)
@@ -75,6 +78,7 @@ def main(config: Config, device: Union[str, torch.device] = "cuda") -> None:
         "JSRT", config.data_dir, config.img_size, config.batch_size,
         config.num_workers, config.n_labelled_images, seed=config.seed,
         synthetic=config.synthetic_data, splits_dir=config.splits_dir,
+        **mesh.loader_shard(),
     )
     task = build_task(config, device, loaders)
     logger = MetricsLogger(config.log_dir, config, enabled=not config.debug)

@@ -15,16 +15,21 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from tedm_tpu_torch.config import Config, diff_configs
+from tedm_tpu_torch.parallel import mesh
 
 
 def save_checkpoint(path: str, state: Dict[str, Any], config: Config) -> None:
-    """Write ``state`` (a dict of state_dicts) and ``config`` under ``path``."""
-    path = os.path.abspath(path)
-    os.makedirs(path, exist_ok=True)
-    tmp = os.path.join(path, "state.pt.tmp")
-    torch.save(state, tmp)
-    os.replace(tmp, os.path.join(path, "state.pt"))
-    config.save(os.path.join(path, "config.json"))
+    """Write ``state`` (a dict of state_dicts) and ``config`` under ``path``;
+    in a data-parallel run rank 0 writes, and every rank returns once the
+    checkpoint is there (a rank may read it next)."""
+    if mesh.rank() == 0:
+        path = os.path.abspath(path)
+        os.makedirs(path, exist_ok=True)
+        tmp = os.path.join(path, "state.pt.tmp")
+        torch.save(state, tmp)
+        os.replace(tmp, os.path.join(path, "state.pt"))
+        config.save(os.path.join(path, "config.json"))
+    mesh.barrier()
 
 
 def load_config(path: str) -> Config:

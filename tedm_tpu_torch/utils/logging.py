@@ -34,14 +34,17 @@ def tile_grid(imgs: np.ndarray, ncols: Optional[int] = None, pad: int = 2) -> np
 
 class MetricsLogger:
     """Scalar and image logging. ``log({name: value}, step)`` dispatches on
-    shape like the reference logger (trainers/utils.py:133-151)."""
+    shape like the reference logger (trainers/utils.py:133-151). In a
+    data-parallel run rank 0 logs, the others' loggers are off."""
 
     def __init__(self, log_dir: str, config: Any = None, enabled: bool = True):
+        from tedm_tpu_torch.parallel import mesh
+
         self.log_dir = log_dir
-        self.enabled = enabled
+        self.enabled = enabled and mesh.rank() == 0
         self._tb = None
         self._jsonl = None
-        if not enabled:
+        if not self.enabled:
             return
         os.makedirs(log_dir, exist_ok=True)
         self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")

@@ -6,8 +6,9 @@
   here), and the ``state_dict`` keys do not change.
 * ``--profile_dir``: ``train.main`` traces steps 10 to 15 of the backbone's
   loop and of the segmentation loop into a trace file with host events;
-  ``--remat`` and ``--profile_dir`` are no longer refused, the A.5h flags
-  still are.
+  ``--remat`` and ``--profile_dir`` are no longer refused; ``--multihost``
+  is taken (A.5h's data axis) and without torchrun's environment it is an
+  error, never a quiet run as one process.
 """
 
 import glob
@@ -77,6 +78,8 @@ def test_profile_dir_writes_a_trace_and_remat_is_taken(experiment, tmp_path):
     assert sum("conv" in str(e.get("name", "")) for e in events) > 16
 
 
-def test_a5h_flags_are_still_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="--multihost .*ROADMAP item A.5h"):
+def test_a5h_flags_are_still_refused(tmp_path, monkeypatch):
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="--multihost needs torchrun's environment"):
         train_main(["--log_dir", str(tmp_path / "r"), "--multihost", *ARGS], device="cpu")

@@ -101,9 +101,11 @@ def test_entry_points_refuse_cpu_without_cuda(monkeypatch, tmp_path):
         build_eval_task(_config(tmp_path))
 
 
-def test_unported_experiment_names_its_roadmap_item(tmp_path):
+def test_unported_experiment_names_its_roadmap_item(tmp_path, monkeypatch):
     """The contrastive finetunes are served as baseline UNets; what the port
-    still refuses (the flags of ROADMAP A.5h) names its item."""
+    still refuses (the flags of ROADMAP A.5h beyond the data axis) names its
+    item; ``--multihost`` without torchrun's environment and a
+    ``--mesh_shape`` the ranks do not fill are errors in JAX's words."""
     for experiment in ("global_finetune", "glob_loc_finetune"):
         task = build_eval_task(_config(tmp_path, experiment), device="cpu")
         assert isinstance(task, BaselineTask) and task.fold == 1
@@ -112,9 +114,16 @@ def test_unported_experiment_names_its_roadmap_item(tmp_path):
     assert {item for _, _, item in NOT_PORTED} == {"A.5h"}
     for flag, _, item in NOT_PORTED:
         value = {"--remat": [], "--multihost": [], "--shard_spatial": [], "--mesh_shape": ["2"],
-                 "--param_sharding": ["tp"], "--data_backend": ["grain"], "--profile_dir": ["p"]}[flag]
+                 "--mesh_axes": ["data", "model"], "--param_sharding": ["tp"], "--data_backend": ["grain"],
+                 "--profile_dir": ["p"]}[flag]
         with pytest.raises(NotImplementedError, match=f"{flag} .*ROADMAP item {item}"):
             train_main(["--synthetic_data", "--log_dir", str(tmp_path / "r"), flag, *value], device="cpu")
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="--multihost needs torchrun's environment"):
+        train_main(["--synthetic_data", "--log_dir", str(tmp_path / "r"), "--multihost"], device="cpu")
+    with pytest.raises(ValueError, match=r"mesh_shape \(2,\) needs 2 devices, have 1"):
+        train_main(["--synthetic_data", "--log_dir", str(tmp_path / "r"), "--mesh_shape", "2"], device="cpu")
 
 
 @pytest.mark.parametrize("model", ["Step_1", "../TEDM"])

@@ -246,7 +246,8 @@ def test_main_trains_validates_resumes_and_feeds_the_backbone(tmp_path):
         # A.5g's flags are taken, and the run goes to the card by default
         (["--remat"], RuntimeError, "CUDA is not available"),
         (["--profile_dir", "p"], RuntimeError, "CUDA is not available"),
-        (["--param_sharding", "fsdp"], NotImplementedError, "A.5"),
+        # A.5h's data axis is taken: FSDP goes to the card by default too
+        (["--param_sharding", "fsdp"], RuntimeError, "CUDA is not available"),
         ([], RuntimeError, "CUDA is not available"),  # the card by default, never a CPU fallback
     ],
 )
