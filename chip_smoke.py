@@ -144,6 +144,21 @@ Phases, each of which exits non-zero on failure:
      at batch 8 a rank; NCCL refuses two ranks on one device), both ranks
      logging the same loss; run_tests --multihost over phase 14's baseline
      against its npz files;
+ 19. the model mesh axis (``parallel/tensor_parallel.py``): (a) phase 18's
+     backbone runs under ``--mesh_shape 1 1 --mesh_axes data model
+     --param_sharding tp`` in a world of one under NCCL (the TP code and its
+     collectives on NCCL), on each of its paths, against the run without a
+     group at phase 18's gates, the launches a step equal; (b) TP of 2
+     ranks on the one card over gloo, mesh (1, 2) at ``--tp_min_width
+     256``: a backbone step (batch 4) in fp32 (B.1, B.1b) and in bf16 with
+     resblock + flash (B.2, B.4, B.4b, B.5, their weights gathered) and a
+     TEDM head step with groupnorm (B.3; its frozen backbone sharded too),
+     each against one process on the same batch at phases 6 and 10's gates,
+     both ranks' replicated parameters equal, a rank's parameter bytes the
+     rule's count; (c) ``--data_backend device``: backbone steps whose
+     batches are rendered on the card, and one index rendering the same
+     pixels in batches of other composition; (d) ``--data_backend grain``:
+     trains where grain imports, else refuses, naming the package;
 then one JSON line listing every kernel and the final JSON status line.
 """
 
@@ -2759,6 +2774,364 @@ def phase_18(tmp, base_dir, root):
     return runs, report
 
 
+# ------------------------------------------------------------------ phase 19
+
+TP_AXES = ("--mesh_axes", "data", "model")
+TP_ROWS = 4                    # the global batch of the 2-rank TP steps (both ranks take every row)
+TP_WIDTH = 256                 # --tp_min_width of the 2-rank steps (JAX's default)
+TP_TWO_PATHS = ((), ("--mixed_precision", "--use_pallas_resblock", "--use_pallas_flash"))
+DEVICE_STEPS = 3               # backbone steps of the --data_backend device run
+
+
+def tp_world_of_one(tmp):
+    """Phase 19 (a): TP in a world of one under NCCL (mesh (1, 1) over data
+    and model): phase 18's backbone runs on each of its paths, against the
+    same run without a group. Returns the runs' launches by path and the
+    measurements."""
+    runs, report = [], {}
+    plain = {flags: dp_run(tmp, flags, None, label_of("--mixed_precision" in flags, flags) + "tp plain")
+             for flags in DP_PATHS}
+    for flags in DP_PATHS:
+        mixed = "--mixed_precision" in flags
+        kernel_flags = tuple(f for f in flags if f != "--mixed_precision")
+        label = label_of(mixed, kernel_flags) + "backbone TP"
+        loss_gate, param_gate = (BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL) if mixed else (STEP_LOSS_TOL, STEP_GRAD_TOL)
+        one = plain[flags]
+        got = dp_run(tmp, (*flags, "--mesh_shape", "1", "1", *TP_AXES), "tp", label)
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], one["losses"]))
+        param_err = max(((got["params"][k] - v).abs().max() / v.abs().max().clamp(min=1e-12)).item()
+                        for k, v in one["params"].items())
+        print(f"phase 19 {label} (mesh 1 x 1, world of one, NCCL): losses {got['losses']} against "
+              f"{one['losses']} without a group (largest relative difference {loss_err:.3e}, gate {loss_gate}); "
+              f"parameters after step {DP_GATE_STEP}: largest difference {param_err:.3e} of a tensor's largest "
+              f"entry (gate {param_gate}); launches a step {({k: v for k, v in got['per_step'].items() if v})}; "
+              f"median step {got['step_ms']:.3f} ms against {one['step_ms']:.3f} ms "
+              f"({got['step_ms'] / one['step_ms']:.3f}x)", flush=True)
+        if len(got["losses"]) != DP_STEPS or not loss_err <= loss_gate or not param_err <= param_gate:
+            fail(f"phase 19 {label}: losses or parameters off the run without a group")
+        if got["per_step"] != one["per_step"]:
+            fail(f"phase 19 {label}: launches a step {got['per_step']} != {one['per_step']}")
+        runs.append((f"{label_of(mixed, kernel_flags)}training (a) TP 1x1", got["counts"]))
+        report[label] = {"step_ms": got["step_ms"], "plain_step_ms": one["step_ms"], "loss_err": loss_err,
+                         "param_err": param_err, "all_step_ms": got["all_step_ms"]}
+    return runs, report
+
+
+def tp_config(*flags):
+    """The backbone's config (default widths) with ``flags``."""
+    from tedm_tpu_torch.config import config_from_args
+
+    return config_from_args(["--experiment", "img_only", "--seed", str(SEED), "--log_dir", tempfile.gettempdir(),
+                             *flags])
+
+
+def unsharded_backbone(flags):
+    """A backbone of ``flags`` on the CPU, not sharded (the rule's shapes)."""
+    from tedm_tpu_torch.trainers import diffusion as D
+
+    return D.build_model(tp_config(*flags))
+
+
+def tedm_head(cfg):
+    from tedm_tpu_torch.models.segmentation import PixelClassifier
+
+    return PixelClassifier(stage_channels=tuple(cfg.dim * m for m in reversed(cfg.dim_mults)), img_size=cfg.img_size,
+                           shared=True)
+
+
+def tp_inputs(out):
+    """The 2-rank TP check's inputs, made on the host from the seed: the
+    backbone's initial weights (default widths), TP_ROWS synthetic images
+    with their t and noise; a TEDM head's weights, one labelled image and
+    its feature noise (its 8 timesteps)."""
+    from tedm_tpu_torch.config import config_from_args
+    from tedm_tpu_torch.data.datasets import SyntheticCXRDataset
+    from tedm_tpu_torch.trainers.common import init_seeded, to_nchw
+
+    cfg = tp_config()
+    t_steps = config_from_args(["--experiment", "TEDM", "--log_dir", tempfile.gettempdir()]).t_steps_to_save
+    data = SyntheticCXRDataset("cxr_train", TP_ROWS, cfg.img_size, labelled=False, seed=SEED)
+    img, mask = SyntheticCXRDataset("train", 1, cfg.img_size, labelled=True, seed=SEED)[0]
+    rs = np.random.RandomState(SEED + 19)
+    s = len(t_steps)
+    clf = init_seeded(SEED + 1, lambda: tedm_head(cfg))
+    batch = {"init": init_seeded(SEED, lambda: unsharded_backbone(())).state_dict(),
+             "x": to_nchw(np.stack([data[i] for i in range(TP_ROWS)]), "cpu"), "valid": torch.ones(TP_ROWS),
+             "t": torch.from_numpy(rs.randint(0, cfg.timesteps, TP_ROWS)),
+             "noise": torch.from_numpy(rs.standard_normal((TP_ROWS, 1, cfg.img_size, cfg.img_size)).astype(np.float32)),
+             "classifier": clf.state_dict(), "t_steps": tuple(t_steps),
+             "img": to_nchw(img[None], "cpu"), "mask": to_nchw(mask[None], "cpu"),
+             "feature_noise": torch.from_numpy(rs.standard_normal((s, 1, cfg.img_size, cfg.img_size)).astype(np.float32))}
+    torch.save(batch, os.path.join(out, "batch.pt"))
+    return batch
+
+
+def tp_full(module) -> dict:
+    """The full gradients and parameters of ``module``, a TP rank's gathered."""
+    from tedm_tpu_torch.parallel import tensor_parallel as tp
+
+    whole = lambda p, t: tp.all_gather(t, p.tp, 0) if tp.is_sharded(p) else t
+    return {"grads": {n: whole(p, p.grad).cpu() for n, p in module.named_parameters() if p.grad is not None},
+            "params": {n: whole(p, p.detach()).cpu() for n, p in module.named_parameters()},
+            "replicated": {n: p.detach().cpu() for n, p in module.named_parameters() if not tp.is_sharded(p)}}
+
+
+def tp_backbone_step(batch, flags, dp=None):
+    """One backbone step on the card from ``batch``'s weights over its rows,
+    with its t and noise, in one process or on a TP rank (``dp``)."""
+    from tedm_tpu_torch.ops.schedules import make_schedule
+    from tedm_tpu_torch.trainers import diffusion as D
+    from tedm_tpu_torch.trainers.common import make_optimizer
+
+    cfg = tp_config(*flags)
+    unet = D.build_model(cfg)
+    unet.load_state_dict(batch["init"])
+    unet.to("cuda")
+    model = unet if dp is None else dp.wrap(unet)
+    sched = make_schedule(cfg.timesteps, cfg.beta_schedule, cfg.p2_loss_weight_gamma, cfg.p2_loss_weight_k).to("cuda")
+    steps = D.make_steps(cfg, model, sched, make_optimizer(cfg, unet.parameters()), None, dp)
+    pick = lambda k: batch[k].cuda()
+    loss, _ = steps.train_step(pick("x"), torch.zeros(1, device="cuda"), pick("valid"), t=pick("t"), noise=pick("noise"))
+    return {"loss": loss.item(), **tp_full(unet), "module": unet}
+
+
+def tp_head_step(batch, dp=None):
+    """One TEDM head step (fp32, the backbone under --use_pallas_groupnorm)
+    on the card from ``batch``'s weights, image and feature noise."""
+    from tedm_tpu_torch.ops.schedules import make_schedule
+    from tedm_tpu_torch.trainers.common import make_train_step
+    from tedm_tpu_torch.trainers.datasetdm import SegTask
+
+    unet = unsharded_backbone(("--use_pallas_groupnorm",))
+    unet.load_state_dict(batch["init"])
+    unet = unet.to("cuda").eval().requires_grad_(False)
+    clf = tedm_head(tp_config())
+    clf.load_state_dict(batch["classifier"])
+    clf.to("cuda")
+    if dp is not None:
+        dp.place(unet)
+    task = SegTask(unet=unet, classifier=clf if dp is None else dp.wrap(clf, find_unused=True),
+                   sched=make_schedule(1000, "cosine").to("cuda"), t_steps=batch["t_steps"], normalize=True,
+                   fold=len(batch["t_steps"]))
+    step = make_train_step(task, torch.optim.Adam(clf.parameters(), lr=1e-4), (), dp)
+    loss, _ = step(batch["img"].cuda(), batch["mask"].cuda(), torch.ones(1, device="cuda"),
+                   noise=batch["feature_noise"].cuda())
+    return {"loss": loss.item(), **tp_full(clf), "backbone": unet}
+
+
+def _tp_gloo_rank(rank, out):
+    """A rank of phase 19 (b): TP over a (1, 2) mesh on the card over gloo."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    try:
+        dist.init_process_group("gloo", store=dist.FileStore(os.path.join(out, "store"), 2), rank=rank,
+                                world_size=2, timeout=datetime.timedelta(seconds=300))
+        torch.cuda.set_device(0)
+        from tedm_tpu_torch.parallel import mesh
+        from tedm_tpu_torch.parallel import tensor_parallel as tp
+
+        mesh.make_mesh((1, 2), ("data", "model"))
+        batch = torch.load(os.path.join(out, "batch.pt"), weights_only=False)
+        t0 = time.perf_counter()
+        for flags in TP_TWO_PATHS:
+            reset_launches()
+            step = tp_backbone_step(batch, flags, mesh.DataParallel("tp", tp_min_width=TP_WIDTH))
+            torch.cuda.synchronize()
+            unet = step.pop("module")
+            plan = tp.plan_of(unsharded_backbone(flags), 2, TP_WIDTH)
+            res[flags] = {**step, "counts": read_launches(), "bytes": param_bytes(unet, plan)}
+        reset_launches()
+        head = tp_head_step(batch, mesh.DataParallel("tp", tp_min_width=TP_WIDTH))
+        torch.cuda.synchronize()
+        bb = head.pop("backbone")
+        res["TEDM"] = {**head, "counts": read_launches(),
+                       "bytes": param_bytes(bb, tp.plan_of(unsharded_backbone(("--use_pallas_groupnorm",)), 2, TP_WIDTH))}
+        res["seconds"] = time.perf_counter() - t0
+        dist.destroy_process_group()
+    except Exception:
+        res = {"error": traceback.format_exc()[-2000:]}
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+
+
+def param_bytes(module, plan) -> dict:
+    """A TP rank's parameter bytes, the rule's count of them (each parameter
+    that ``plan`` shards at half its full bytes) and the full bytes."""
+    from tedm_tpu_torch.parallel import tensor_parallel as tp
+
+    held = {n: p.numel() * p.element_size() for n, p in module.named_parameters()}
+    full = {n: b * (2 if tp.is_sharded(p) else 1) for (n, b), p in zip(held.items(), module.parameters())}
+    return {"held": sum(held.values()), "rule": sum(b // 2 if plan[n] else b for n, b in full.items()),
+            "full": sum(full.values()), "sharded": sum(plan.values())}
+
+
+def tp_two_ranks(tmp):
+    """Phase 19 (b): TP of 2 ranks on the one card over gloo, mesh (1, 2) at
+    --tp_min_width TP_WIDTH: a backbone step in fp32 and in bf16 with
+    resblock + flash, and a TEDM head step with groupnorm, each against one
+    process on the same batch. Returns the runs' launches and the
+    measurements."""
+    import torch.multiprocessing as mp
+
+    out = os.path.join(tmp, "tp", "two")
+    os.makedirs(out, exist_ok=True)
+    batch = tp_inputs(out)
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_tp_gloo_rank, args=(r, out)) for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    secs = time.perf_counter() - t0
+    ranks = [torch.load(f, weights_only=False) if os.path.exists(f := os.path.join(out, f"rank{r}.pt"))
+             else {"error": "no result"} for r in range(2)]
+    errors = [r["error"] for r in ranks if "error" in r]
+    if errors:
+        fail(f"phase 19: TP on 2 ranks: {errors}")
+    runs, report = [], {"seconds": secs, "rank_seconds": ranks[0]["seconds"]}
+    cases = [(flags, label_of("--mixed_precision" in flags, tuple(f for f in flags if f != "--mixed_precision"))
+              + "backbone step", lambda flags=flags: tp_backbone_step(batch, flags)) for flags in TP_TWO_PATHS]
+    cases.append(("TEDM", "--use_pallas_groupnorm TEDM head step", lambda: tp_head_step(batch)))
+    for key, label, one_step in cases:
+        one = one_step()
+        one.pop("module", None)
+        one.pop("backbone", None)
+        mixed = "--mixed_precision" in key
+        loss_tol, grad_tol = (BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL) if mixed else (STEP_LOSS_TOL, STEP_GRAD_TOL)
+        r0, r1 = ranks[0][key], ranks[1][key]
+        loss_err = abs(r0["loss"] - one["loss"]) / abs(one["loss"])
+        grad_errs = {n: rel_err(r0["grads"][n], g) for n, g in one["grads"].items()}
+        worst = max(grad_errs, key=grad_errs.get)
+        same = r0["loss"] == r1["loss"] and r0["replicated"].keys() == r1["replicated"].keys() and all(
+            torch.equal(v, r1["replicated"][n]) for n, v in r0["replicated"].items())
+        b = r0["bytes"]
+        print(f"phase 19 TP of 2 ranks on the one card over gloo, mesh 1 x 2, --tp_min_width {TP_WIDTH}, {label} "
+              f"at batch {TP_ROWS if key != 'TEDM' else 1} against one process on the same batch: loss "
+              f"{r0['loss']:.6f} vs {one['loss']:.6f} (relative {loss_err:.2e}, tol {loss_tol}); gradients of "
+              f"{len(grad_errs)} tensors, worst relative to the tensor's largest entry {grad_errs[worst]:.2e} at "
+              f"{worst} (tol {grad_tol}); both ranks' loss and {len(r0['replicated'])} replicated parameters "
+              f"equal: {same}; a rank's parameter bytes {b['held']} (the rule's count {b['rule']}, of "
+              f"{b['full']}, {b['sharded']} tensors sharded); launches on rank 0 "
+              f"{({k: v for k, v in r0['counts'].items() if v})}", flush=True)
+        if not (math.isfinite(one["loss"]) and loss_err <= loss_tol and grad_errs[worst] <= grad_tol):
+            fail(f"phase 19: the 2-rank TP {label} disagrees with one process")
+        if not same:
+            fail(f"phase 19: the 2-rank TP {label}: the ranks hold different replicated parameters")
+        if b["held"] != b["rule"] or not b["held"] < b["full"]:
+            fail(f"phase 19: the 2-rank TP {label}: a rank holds {b['held']} parameter bytes, the rule {b['rule']}")
+        runs.append((f"{label.replace(' step', '')} TP 1x2 (gloo)", r0["counts"]))
+        report[label] = {"loss_rel_err": loss_err, "worst_grad_rel_err": grad_errs[worst], "param_bytes": b,
+                         "launches": {k: v for k, v in r0["counts"].items() if v}}
+    print(f"phase 19 TP of 2 ranks over gloo: {secs:.1f} s of command, {ranks[0]['seconds']:.1f} s in rank 0's steps "
+          "(gloo copies each gathered tensor through the host: not a cost of TP on NCCL)", flush=True)
+    return runs, report
+
+
+def device_backend(tmp):
+    """Phase 19 (c): --data_backend device: backbone steps through
+    train.main whose batches are rendered on the card, and the same indices
+    in two batches of different composition rendering the same pixels."""
+    from tedm_tpu_torch.data import device_synthetic as ds
+    from tedm_tpu_torch.train import main as train_main
+    from tedm_tpu_torch.trainers import diffusion as D
+
+    seen = []
+    to_nchw = D.to_nchw
+
+    def watched(a, device):
+        if a.shape[0] == cfg.batch_size:  # an image batch (not the dummy condition)
+            seen.append(torch.is_tensor(a) and a.is_cuda)
+        return to_nchw(a, device)
+
+    argv = ["--experiment", "img_only", "--synthetic_data", "--data_backend", "device", "--max_steps",
+            str(DEVICE_STEPS), "--log_freq", "1", "--val_freq", "100", "--seed", str(SEED),
+            "--log_dir", os.path.join(tmp, "tp", "device")]
+    from tedm_tpu_torch.config import config_from_args
+
+    cfg = config_from_args(argv)
+    D.to_nchw = watched
+    try:
+        t0 = time.perf_counter()
+        train_main(argv, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        D.to_nchw = to_nchw
+    losses = [r["train/loss"] for r in read_metrics(cfg.log_dir) if "train/loss" in r]
+    base = ds.base_seed("cxr_train", SEED)
+    a = ds.render(ds.draws(base, np.array([3, 5, 7, 9]), cfg.img_size, "cuda"), False)[0]
+    b = ds.render(ds.draws(base, np.array([9, 1, 3]), cfg.img_size, "cuda"), False)[0]
+    pure = torch.equal(a[0], b[2]) and torch.equal(a[3], b[0])
+    print(f"phase 19 --data_backend device: {DEVICE_STEPS} backbone steps through train.main in {secs:.1f} s, "
+          f"losses {losses}; image batches on the card before each step: {sum(seen)} of {len(seen)}; indices 3 "
+          f"and 9 render the same pixels in batches [3, 5, 7, 9] and [9, 1, 3]: {pure}", flush=True)
+    if len(losses) != DEVICE_STEPS or not all(map(math.isfinite, losses)) or not seen or not all(seen) or not pure:
+        fail("phase 19: --data_backend device")
+    return {"seconds": secs, "losses": losses, "on_card": f"{sum(seen)} of {len(seen)}", "pure": pure}
+
+
+def grain_backend(tmp):
+    """Phase 19 (d): --data_backend grain trains where grain imports, and
+    refuses before any step, naming the package, where it does not."""
+    import importlib.util
+
+    from tedm_tpu_torch.train import main as train_main
+
+    argv = ["--experiment", "img_only", "--synthetic_data", "--data_backend", "grain", "--max_steps", "2",
+            "--log_freq", "1", "--val_freq", "100", "--seed", str(SEED), "--log_dir", os.path.join(tmp, "tp", "grain")]
+    if importlib.util.find_spec("grain") is not None:
+        train_main(argv, device="cuda")
+        print("phase 19 --data_backend grain: grain imports here; 2 backbone steps ran", flush=True)
+        return {"grain": "ran 2 steps"}
+    try:
+        train_main(argv, device="cuda")
+    except ModuleNotFoundError as e:
+        if "grain" not in str(e):
+            fail(f"phase 19: --data_backend grain refused without naming grain: {e}")
+        print(f"phase 19 --data_backend grain: grain is not installed here; train.main refused before any step: {e}",
+              flush=True)
+        return {"grain": f"refused: {e}"}
+    fail("phase 19: --data_backend grain ran without the grain package")
+
+
+def phase_19(tmp):
+    """Phase 19: the model mesh axis and the input backends."""
+    import torch.distributed as dist
+
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()), "RANK": "0", "WORLD_SIZE": "1",
+           "LOCAL_RANK": "0"}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        runs, report = tp_world_of_one(tmp)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    runs2, report["two ranks (gloo)"] = tp_two_ranks(tmp)
+    report["device backend"] = device_backend(tmp)
+    report["grain backend"] = grain_backend(tmp)
+    return runs + runs2, report
+
+
 def add_paths(*runs) -> dict:
     """Each kernel's launches summed over the named runs of its main path:
     {kernel: {path: launches}}, paths with no launch left out."""
@@ -2853,10 +3226,13 @@ def main() -> None:
             runs17, report17 = phase_17(tmp, served, served16, os.path.dirname(backbone), backbone16, cond_dir)
         with Phase("18. data parallel in a world of one: DDP and FSDP against no group, layouts, eval"):
             runs18, report18 = phase_18(tmp, base_dir, root)
+        with Phase("19. the model mesh axis (TP) in a world of one and on 2 gloo ranks, the input backends"):
+            runs19, report19 = phase_19(tmp)
 
     paths = add_paths(("serving", served["launches"]), ("training (a)", a32), ("training (b)", b32),
                       ("bf16 serving", served16["launches"]), ("bf16 training (a)", a16),
-                      ("bf16 training (b)", b16), *opt_in, *evals, *cl_runs, *cond_runs, *runs17, *runs18)
+                      ("bf16 training (b)", b16), *opt_in, *evals, *cl_runs, *cond_runs, *runs17, *runs18,
+                      *runs19)
     bounded = lambda rows: "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations"
     gn_req = [(s, torch.float32, f) for s, f in gn_calls(8)]
     rb_req = [(s, torch.float32) for s in rb_shapes(8)]
@@ -2965,7 +3341,7 @@ def main() -> None:
         if kern["launches"] == 0:
             fail(f"{kern['name']} was never launched on the main path")
     print(json.dumps({"kernels": kernels, "phase_14": eval_report, "phase_15": cl_report, "phase_16": cond_report,
-                      "phase_17": report17, "phase_18": report18}))
+                      "phase_17": report17, "phase_18": report18, "phase_19": report19}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -1,6 +1,9 @@
 """Batch loader: static shapes, seeded shuffling, prefetch, host sharding
-(port of ``Loader`` and ``build_dataloaders`` in ``tedm_tpu/data/pipeline.py``,
-the ``threads`` backend).
+(port of ``Loader`` and ``build_dataloaders`` in ``tedm_tpu/data/pipeline.py``).
+``build_dataloaders``' ``backend`` picks the loader: ``threads`` (``Loader``),
+``grain`` (``grain_pipeline.GrainLoader``) or ``device``
+(``device_synthetic.DeviceSyntheticLoader``, synthetic data only, rendered
+on the device as NCHW tensors).
 
 * Every batch has the same shape and carries a ``valid`` mask (1.0 for real
   rows, 0.0 for padding); losses and metrics are mask-aware.
@@ -19,7 +22,8 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, Iterator, Optional
+import importlib.util
+from typing import Any, Dict, Iterator, Optional, Union
 
 import numpy as np
 
@@ -170,6 +174,8 @@ def build_dataloaders(
     synthetic: bool = False,
     splits_dir: Optional[str] = None,
     drop_last: bool = False,
+    backend: str = "threads",
+    device: Union[str, Any] = "cuda",
 ) -> Dict[str, Loader]:
     """Train, val and test loaders of ``dataset`` (JSRT or CXR14), read from
     ``data_dir`` with the split CSVs of ``splits_dir`` (the port's copies by
@@ -178,7 +184,9 @@ def build_dataloaders(
     and test are neither. The JSRT train subset is its first
     ``n_labelled_images`` rows (reference: dataloaders/JSRT.py:29-31).
     ``drop_last`` drops every loader's last partial batch instead of padding
-    it (the contrastive trainers: a padding row must not reach their losses)."""
+    it (the contrastive trainers: a padding row must not reach their losses).
+    ``backend`` as the module docstring says; ``device`` is where the
+    ``device`` backend renders (tedm_tpu/data/pipeline.py:224-260)."""
     from tedm_tpu_torch.data.datasets import (
         SPLITS_DIR,
         CXR14Dataset,
@@ -188,14 +196,41 @@ def build_dataloaders(
 
     synthetic = synthetic or data_dir is None
     sdir = splits_dir or SPLITS_DIR
+    if backend not in ("threads", "grain", "device"):
+        raise ValueError(f"unknown data backend {backend!r}")
+    if backend == "grain" and importlib.util.find_spec("grain") is None:
+        raise ModuleNotFoundError("--data_backend grain needs the 'grain' package, which is not installed here")
+
+    if backend == "device":
+        # synthetic images rendered on the device; the host ships index batches
+        if not synthetic:
+            raise ValueError("backend='device' requires synthetic data")
+        from tedm_tpu_torch.data.device_synthetic import DeviceSyntheticLoader
+
+        def mkd(split, n, labelled, shuffle, shard, subset=None):
+            return DeviceSyntheticLoader(
+                split, n, img_size, batch_size, labelled=labelled, seed=seed, shuffle=shuffle,
+                shard_index=shard_index if shard else 0, shard_count=shard_count if shard else 1,
+                subset=subset, drop_last=drop_last, device=device,
+            )
+
+        if dataset == "JSRT":
+            return {"train": mkd("train", 197, True, True, True, n_labelled_images),
+                    "val": mkd("val", 25, True, False, False), "test": mkd("test", 25, True, False, False)}
+        if dataset == "CXR14":
+            return {"train": mkd("cxr_train", 2048, False, True, True),
+                    "val": mkd("cxr_train", 2048, False, False, False),
+                    "test": mkd("cxr_train", 2048, False, False, False)}
+        raise ValueError(f"unknown dataset {dataset}")
 
     def mk(ds, shuffle, shard, subset=None):
-        return Loader(
-            ds, batch_size, shuffle=shuffle, seed=seed, drop_last=drop_last,
-            shard_index=shard_index if shard else 0,
-            shard_count=shard_count if shard else 1,
-            num_workers=num_workers, subset=subset,
-        )
+        kw = dict(shuffle=shuffle, seed=seed, drop_last=drop_last, shard_index=shard_index if shard else 0,
+                  shard_count=shard_count if shard else 1, subset=subset)
+        if backend == "grain":
+            from tedm_tpu_torch.data.grain_pipeline import GrainLoader
+
+            return GrainLoader(ds, batch_size, **kw)
+        return Loader(ds, batch_size, num_workers=num_workers, **kw)
 
     if dataset == "JSRT":
         if synthetic:

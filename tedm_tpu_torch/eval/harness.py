@@ -23,7 +23,10 @@ of ``tedm_tpu/eval/harness.py``; reference: auxiliary/postprocessing/run_tests.p
   in a data-parallel run each batch's rows are split over the ranks and
   gathered back in order. Every rank draws the noise of the whole batch
   from the same generator and keeps its rows, so the predictions of any
-  number of ranks are those of one.
+  number of ranks are those of one. On a mesh with a ``model`` axis the
+  rows are split over the data group, and under ``--param_sharding tp``
+  the modules go through the ``tp`` rule, as JAX puts params and
+  batch_stats through it (tedm_tpu/eval/run_tests.py:66-69).
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from tedm_tpu_torch.config import Config
 from tedm_tpu_torch.data.datasets import MonDataset, NIHDataset, SyntheticCXRDataset
 from tedm_tpu_torch.data.pipeline import Loader, build_dataloaders
 from tedm_tpu_torch.ops import metrics as M
-from tedm_tpu_torch.parallel import mesh
+from tedm_tpu_torch.parallel import mesh, tensor_parallel
 from tedm_tpu_torch.trainers.common import to_nchw
 from tedm_tpu_torch.utils.checkpoint import checkpoint_exists, load_checkpoint, load_config
 from tedm_tpu_torch.utils.device import resolve_device
@@ -122,13 +125,24 @@ def build_test_loaders(
     return out
 
 
-def eval_parallel_setup(config: Config) -> Optional[Tuple[int, int]]:
-    """(rank, world) when the ranks of a data-parallel run share each
-    batch of ``config.batch_size`` rows, else None (one rank, or a batch the
-    ranks do not divide: every rank then predicts every row), as JAX's
-    wiring is the identity on one device or an indivisible batch."""
-    n = mesh.world()
-    return (mesh.rank(), n) if n > 1 and config.batch_size % n == 0 else None
+def eval_parallel_setup(config: Config, modules: Iterable[torch.nn.Module] = ()) -> Optional[Tuple[int, int]]:
+    """(data rank, data ranks) when the ranks of a data-parallel run share
+    each batch of ``config.batch_size`` rows, else None (one rank, or a
+    batch the data ranks do not divide: every rank then predicts every
+    row), as JAX's wiring is the identity on one device or an indivisible
+    batch. With a process group it builds ``config``'s mesh, and under
+    ``--param_sharding tp`` shards ``modules`` over its model group."""
+    if not mesh.active():
+        return None
+    mesh.check_config(config)
+    mesh.make_mesh(tuple(config.mesh_shape), tuple(config.mesh_axes))
+    n = mesh.data_world()
+    if config.batch_size % n:
+        return None
+    if config.param_sharding == "tp":
+        for module in modules:
+            tensor_parallel.shard(module, mesh.model_plan(), config.tp_min_width)
+    return (mesh.data_rank(), n) if n > 1 else None
 
 
 def _rows(shard: Optional[Tuple[int, int]], b: int) -> Optional[slice]:

@@ -80,7 +80,7 @@ def evaluate_experiment(
         fwd = make_predict_fn(task)
     loaders = build_test_loaders(config, nih_path, mon_path)
     generator = torch.Generator(device=dev).manual_seed(config.seed + 777)
-    shard = eval_parallel_setup(config)
+    shard = eval_parallel_setup(config, (unet,) if conditional else task.modules.values())
 
     for key, loader in loaders.items():
         path = os.path.join(exp_dir, f"{key}_predictions.npz")

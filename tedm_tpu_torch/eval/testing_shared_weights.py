@@ -61,7 +61,7 @@ def evaluate_shared_weights(
     fwd = make_predict_fn(task)
     loaders = build_test_loaders(config, nih_path, mon_path)
     generator = torch.Generator(device=dev).manual_seed(config.seed + 778)
-    shard = eval_parallel_setup(config)
+    shard = eval_parallel_setup(config, task.modules.values())
     writes = mesh.rank() == 0
     results = {}
 

@@ -11,7 +11,8 @@ decoder stage past the ones run, no final block. A CL checkpoint's ``unet.*``
 keys are therefore exactly what a finetune copies into a full ``Unet``
 (``tedm_tpu/trainers/contrastive.py`` ``_deep_merge``), by
 ``load_state_dict(strict=False)``. Both compute in fp32, as the JAX
-trainers build them (no ``dtype``).
+trainers build them (no ``dtype``). The heads' convs and denses are the
+UNet's ``Conv2d`` and ``Linear``, which take a TP plan as the UNet's do.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tedm_tpu_torch.models.segmentation import flax_batch_norm
-from tedm_tpu_torch.models.unet import ResnetBlock, Unet
+from tedm_tpu_torch.models.unet import Conv2d, Linear, ResnetBlock, Unet
 
 
 def pruned_unet(n_up_stages: int, **unet_kw) -> Unet:
@@ -60,8 +61,8 @@ class GlobalCL(nn.Module):
         super().__init__()
         self.unet = pruned_unet(0, dim=dim, dim_mults=dim_mults, channels=channels, **kernels)
         side = img_size // 2 ** (len(dim_mults) - 1)
-        self.g1_fc1 = nn.Linear(dim * dim_mults[-1] * side * side, g_emb, bias=False)
-        self.g1_fc2 = nn.Linear(g_emb, g_out, bias=False)
+        self.g1_fc1 = Linear(dim * dim_mults[-1] * side * side, g_emb, bias=False)
+        self.g1_fc2 = Linear(g_emb, g_out, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, _, _ = self.unet.encode(x, None)
@@ -90,9 +91,9 @@ class LocalCL(nn.Module):
         self.unet = pruned_unet(l, dim=dim, dim_mults=dim_mults, channels=channels, **kernels)
         dims = [dim] + [dim * m for m in dim_mults]
         mid_dim = dims[-l - 1]
-        self.g2_conv1 = nn.Conv2d(mid_dim, mid_dim, 1, bias=False)
+        self.g2_conv1 = Conv2d(mid_dim, mid_dim, 1, bias=False)
         self.g2_bn = nn.BatchNorm2d(mid_dim, eps=1e-5)
-        self.g2_conv2 = nn.Conv2d(mid_dim, mid_dim, 1, bias=False)
+        self.g2_conv2 = Conv2d(mid_dim, mid_dim, 1, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, r, hs = self.unet.encode(x, None)

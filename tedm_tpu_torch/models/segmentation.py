@@ -10,6 +10,11 @@ layer 1 runs per stage at native resolution and is then nearest-upsampled and
 summed, which equals the conv over the upsampled concatenation and never
 builds that (B, S*960, 128, 128) tensor. ``LinearProbe`` is PDDM's head, one
 1x1 conv over the same S*960 channels, computed the same way.
+
+Under tensor parallelism the heads' 1x1 convs take the ``tp`` rule as the
+UNet's do (``parallel/tensor_parallel.py``): layer 1 sums its stages over
+this rank's out-channels and gathers them before the bias, so BatchNorm's
+statistics are taken over the gathered channels.
 """
 
 from __future__ import annotations
@@ -22,9 +27,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from tedm_tpu_torch.models.diffusion import normalize_to_neg_one_to_one, q_sample
-from tedm_tpu_torch.models.unet import Unet
+from tedm_tpu_torch.models.unet import Conv2d, Unet
 from tedm_tpu_torch.ops.resize import nearest_resize
 from tedm_tpu_torch.ops.schedules import DiffusionSchedule
+from tedm_tpu_torch.parallel import tensor_parallel
 from tedm_tpu_torch.parallel.mesh import all_reduce_sum
 
 
@@ -112,9 +118,9 @@ class PixelClassifier(nn.Sequential):
         c_in = sum(stage_channels) * n_steps
         hidden = (128, 32)
         layers = [
-            nn.Conv2d(c_in, hidden[0], 1), nn.ReLU(), nn.BatchNorm2d(hidden[0], eps=1e-5),
-            nn.Conv2d(hidden[0], hidden[1], 1), nn.ReLU(), nn.BatchNorm2d(hidden[1], eps=1e-5),
-            nn.Conv2d(hidden[1], out_channels, 1),
+            Conv2d(c_in, hidden[0], 1), nn.ReLU(), nn.BatchNorm2d(hidden[0], eps=1e-5),
+            Conv2d(hidden[0], hidden[1], 1), nn.ReLU(), nn.BatchNorm2d(hidden[1], eps=1e-5),
+            Conv2d(hidden[1], out_channels, 1),
         ]
         super().__init__(*([nn.Identity()] if shared else []), *layers)
         self.stage_channels = tuple(stage_channels)
@@ -129,18 +135,9 @@ class PixelClassifier(nn.Sequential):
         (``flax_batch_norm``): running statistics in eval mode, batch
         statistics in train mode."""
         conv1, relu1, bn1, conv2, relu2, bn2, conv3 = list(self)[self.offset:]
-        w1 = conv1.weight  # (h1, c_in, 1, 1)
-        b = feats[0].shape[0] // self.n_steps
-        acc = None
-        off = 0
-        for s in range(self.n_steps):
-            for f, c in zip(feats, self.stage_channels):
-                # fp32 head on features of any dtype (tedm_tpu/models/segmentation.py:126-129)
-                f_s = f[s * b:(s + 1) * b].float()
-                y = F.conv2d(f_s, w1[:, off:off + c])
-                y = nearest_resize(y, self.img_size, self.img_size)
-                acc = y if acc is None else acc + y
-                off += c
+        # fp32 head on features of any dtype (tedm_tpu/models/segmentation.py:126-129)
+        acc = stage_sum(conv1, conv1.weight, (f_s for _, f_s in _step_stage(feats, self.n_steps)),
+                        self.stage_channels * self.n_steps, self.img_size)  # weight (h1, c_in, 1, 1)
         x = flax_batch_norm(bn1, relu1(acc + conv1.bias[None, :, None, None]))
         x = flax_batch_norm(bn2, relu2(conv2(x)))
         return conv3(x)
@@ -174,6 +171,22 @@ def flax_batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     return ((xf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]).to(x.dtype)
 
 
+def stage_sum(module: nn.Module, weight: torch.Tensor, stages, channels: Sequence[int], size: int) -> torch.Tensor:
+    """The sum over ``stages`` (each (B, c, h, w)) of the 1x1 conv with its
+    columns of ``weight`` (off, c), nearest-resized to ``size``: a 1x1 conv
+    over the upsampled concatenation, without building it. Under
+    ``module``'s TP plan over this rank's out-channels, then gathered."""
+    plan = module.tp
+    acc, off = None, 0
+    for f_s, c in zip(stages, channels):
+        if plan is not None:
+            f_s = tensor_parallel.enter(f_s, plan)
+        y = nearest_resize(F.conv2d(f_s, weight[:, off:off + c]), size, size)
+        acc = y if acc is None else acc + y
+        off += c
+    return acc if plan is None else tensor_parallel.gather(acc, plan, 1)
+
+
 def _step_stage(feats: List[torch.Tensor], n_steps: int):
     """(stage index, the stage's fp32 rows of one step) in [step x stage]
     order, the order of the heads' input channels."""
@@ -192,6 +205,8 @@ class LinearProbe(nn.Module):
     features and then discarded them). ``weight`` is (out, S*960, 1, 1) with
     torch's Conv2d init (uniform, variance 1/(3 fan_in)), ``bias`` zeros, as
     the JAX package initialises them. In fp32 on features of any dtype."""
+
+    tp: Optional[tensor_parallel.Plan] = None
 
     def __init__(
         self,
@@ -216,16 +231,13 @@ class LinearProbe(nn.Module):
     def forward(self, feats: List[torch.Tensor]) -> torch.Tensor:
         """feats: the 4 stage maps, each (n_steps*B, c_s, h_s, w_s) -> fp32
         logits (B, out_channels, img_size, img_size)."""
-        acc = None
-        off = 0
-        for i, f_s in _step_stage(feats, self.n_steps):
-            c = self.stage_channels[i]
-            if self.standardize:
-                f_s = (f_s - self.mean[off:off + c, None, None]) / self.std[off:off + c, None, None]
-            y = nearest_resize(F.conv2d(f_s, self.weight[:, off:off + c]), self.img_size, self.img_size)
-            acc = y if acc is None else acc + y
-            off += c
-        return acc + self.bias[None, :, None, None]
+        channels = self.stage_channels * self.n_steps
+        stages = (f_s for _, f_s in _step_stage(feats, self.n_steps))
+        if self.standardize:
+            offs = [sum(channels[:i]) for i in range(len(channels))]
+            stages = ((f_s - self.mean[o:o + c, None, None]) / self.std[o:o + c, None, None]
+                      for f_s, o, c in zip(stages, offs, channels))
+        return stage_sum(self, self.weight, stages, channels, self.img_size) + self.bias[None, :, None, None]
 
 
 def masked_feature_sums(

@@ -46,6 +46,13 @@ JAX's ResnetBlock returns before its Blocks); ``flash_attention`` runs the
 mid Attention through ``kernels.flash_attention.flash_cosine_attention``.
 They are switches apart from ``use_pallas``, as in JAX.
 
+Under tensor parallelism (``parallel/tensor_parallel.py``) a ``Conv2d`` or
+``Linear`` whose weight the ``tp`` rule shards holds its out-channel rows of
+this rank of the model group and computes column-parallel: its own
+out-channels with their entries of the replicated bias, gathered. The kernels that take
+weights (the fused ResnetBlock, the fused PreNorm block) get them gathered
+whole, as GSPMD gathers a Pallas call's weights and runs it whole.
+
 ``remat`` (``--remat``) checkpoints each ResnetBlock's and each attention
 block's call (``torch.utils.checkpoint``, non-reentrant) when autograd
 records, as JAX wraps those modules in ``nn.remat``
@@ -70,36 +77,50 @@ from tedm_tpu_torch.kernels.groupnorm import fused_group_norm_film_silu, group_n
 from tedm_tpu_torch.kernels.linear_attention import linear_attention, linear_attention_reference
 from tedm_tpu_torch.kernels.resblock import fused_resnet_block
 from tedm_tpu_torch.ops.resize import nearest_upsample_2x
+from tedm_tpu_torch.parallel import tensor_parallel
+from tedm_tpu_torch.parallel.tensor_parallel import full_weight
 
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` in ``compute_dtype``: input, weight and bias are cast to
-    it, and so is the output. The parameters stay fp32."""
+    it, and so is the output. The parameters stay fp32. Under a TP ``Plan``
+    (``tp``) column-parallel (module docstring)."""
 
     compute_dtype = torch.float32
+    tp: Optional[tensor_parallel.Plan] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+        if self.tp is None:
+            return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+        bias = tensor_parallel.local_rows(bias, self.tp)
+        return tensor_parallel.column(self.tp, x, lambda v: self._conv_forward(v.to(dt), self.weight.to(dt), bias))
 
 
 class Linear(nn.Linear):
     """``nn.Linear`` in ``compute_dtype``, as ``Conv2d``."""
 
     compute_dtype = torch.float32
+    tp: Optional[tensor_parallel.Plan] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        if self.tp is None:
+            return F.linear(x.to(dt), self.weight.to(dt), bias)
+        bias = tensor_parallel.local_rows(bias, self.tp)
+        return tensor_parallel.column(self.tp, x, lambda v: F.linear(v.to(dt), self.weight.to(dt), bias), dim=-1)
 
 
 class ChanLayerNorm(nn.Module):
     """Channel-wise LayerNorm with gain only, biased variance, eps 1e-5,
     fp32 statistics, output in ``compute_dtype``
-    (reference: models/unet_model.py:52-61)."""
+    (reference: models/unet_model.py:52-61). Its gain is 1-D in JAX, so the
+    ``tp`` rule leaves it replicated (``jax_vectors``)."""
 
     compute_dtype = torch.float32
+    jax_vectors = ("g",)
 
     def __init__(self, dim: int):
         super().__init__()
@@ -203,9 +224,10 @@ class ResnetBlock(nn.Module):
             (p1, n1), (p2, n2), res = (self.block1.proj, self.block1.norm), (self.block2.proj, self.block2.norm), self.res_conv
             scale, shift = scale_shift if scale_shift is not None else (None, None)
             wres, bres = (res.weight, res.bias) if isinstance(res, Conv2d) else (None, None)
+            wres = None if wres is None else full_weight(res)
             return fused_resnet_block(
-                x.to(self.compute_dtype), p1.weight, p1.bias, n1.weight, n1.bias, scale, shift,
-                p2.weight, p2.bias, n2.weight, n2.bias, wres, bres, groups=self.groups,
+                x.to(self.compute_dtype), full_weight(p1), p1.bias, n1.weight, n1.bias, scale, shift,
+                full_weight(p2), p2.bias, n2.weight, n2.bias, wres, bres, groups=self.groups,
             )
         h = self.block1(x, scale_shift)
         h = self.block2(h)
@@ -298,8 +320,8 @@ class PreNormAttn(nn.Module):
             b, c, h, w = x.shape
             to_out, out_norm = attn.to_out
             y = prenorm_linear_attention(
-                x.reshape(b, c, h * w), self.fn.norm.g, attn.to_qkv.weight,
-                to_out.weight, to_out.bias, out_norm.g,
+                x.reshape(b, c, h * w), self.fn.norm.g, full_weight(attn.to_qkv),
+                full_weight(to_out), to_out.bias, out_norm.g,
             )
             return y.reshape(b, c, h, w)
         return self.fn(x) + x

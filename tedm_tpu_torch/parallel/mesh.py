@@ -1,5 +1,5 @@
-"""Data parallelism over ``torch.distributed`` (port of the ``data`` axis of
-``tedm_tpu/parallel/mesh.py``).
+"""Data and tensor parallelism over ``torch.distributed`` (port of the
+``data`` and ``model`` axes of ``tedm_tpu/parallel/mesh.py``).
 
 JAX runs one program over the global batch: GSPMD shards the batch over the
 mesh's ``data`` axis and inserts the reductions. torch runs one process per
@@ -25,6 +25,18 @@ device, so here a rank plays the part of one JAX host with one device:
   validation loss) are taken from reduced values (``host_sum``), on a gloo
   group, so that no rank enters a collective that another skips.
 
+* A mesh with a ``model`` axis (``--mesh_shape D M --mesh_axes data
+  model``) places rank ``r`` at ``divmod(r, M)``, as JAX reshapes its
+  devices row-major, and builds the data group (the ranks of one ``model``
+  coordinate) and the model group (the ranks of one ``data`` coordinate)
+  once. Everything above reduces over the data group only: the ranks of a
+  model group read the same rows and draw the same t, noise and crops
+  (``loader_shard``, ``rank_seed``), and hold the same activations.
+  ``--param_sharding tp`` shards the wide weights over the model group
+  (``tensor_parallel``) and wraps the module in DDP over the data group;
+  under ``replicated`` or ``fsdp`` the model ranks are plain replicas, as
+  in JAX.
+
 Without a process group (one process, no ``--multihost``) every function
 here is the identity, and the trainers run exactly as on one device.
 """
@@ -37,9 +49,12 @@ import math
 import os
 from typing import Any, Dict, Iterable, List, NamedTuple, Optional, Sequence, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
+
+from tedm_tpu_torch.parallel import tensor_parallel
 
 # a collective that waits longer than this fails instead of hanging: a rank
 # that skipped a collective, or died, ends the run
@@ -65,12 +80,59 @@ def rank() -> int:
     return dist.get_rank() if active() else 0
 
 
+class _Axes(NamedTuple):
+    key: tuple                 # (mesh shape, axis names, the default group) it was built for
+    data: Any                  # the data group (None: the default group)
+    model: Any                 # the model group (None: no model axis)
+    data_size: int
+    data_rank: int
+    model_size: int
+    model_rank: int
+
+
+_axes: Optional[_Axes] = None  # the mesh's groups; None: one data axis over the default group
+
+
+def _current() -> Optional[_Axes]:
+    if _axes is None or not active() or _axes.key[2] is not dist.group.WORLD:
+        return None
+    return _axes
+
+
+def data_group():
+    """The group the data axis reduces over (None: the default group)."""
+    a = _current()
+    return None if a is None else a.data
+
+
+def data_world() -> int:
+    a = _current()
+    return world() if a is None else a.data_size
+
+
+def data_rank() -> int:
+    a = _current()
+    return rank() if a is None else a.data_rank
+
+
+def model_world() -> int:
+    a = _current()
+    return 1 if a is None else a.model_size
+
+
+def model_plan() -> Optional[tensor_parallel.Plan]:
+    """This rank's place on the ``model`` axis, None without one."""
+    a = _current()
+    return None if a is None or a.model is None else tensor_parallel.Plan(a.model, a.model_size, a.model_rank)
+
+
 def rank_seed(seed: int) -> int:
     """The seed of a rank's per-image draws (crops, brightness, diffusion t
-    and noise, feature noise): ``seed`` on rank 0, so that a world of one
-    draws what one process draws, and another stream on every other rank,
-    as JAX draws every row of the global batch apart."""
-    return seed + 1_000_003 * rank()
+    and noise, feature noise): ``seed`` on data rank 0, so that a world of
+    one draws what one process draws, and another stream on every other
+    data rank, as JAX draws every row of the global batch apart; the ranks
+    of one model group draw alike."""
+    return seed + 1_000_003 * data_rank()
 
 
 def init_multihost(device: Union[str, torch.device] = "cuda") -> torch.device:
@@ -109,7 +171,7 @@ def init_multihost(device: Union[str, torch.device] = "cuda") -> torch.device:
 
 
 class Mesh(NamedTuple):
-    """The port's mesh: one ``data`` axis over the ranks."""
+    """The port's mesh: its shape and axis names (``data``, ``model``)."""
 
     shape: tuple
     axis_names: tuple
@@ -120,19 +182,55 @@ def make_mesh(mesh_shape: Sequence[int] = (), mesh_axes: Sequence[str] = ("data"
     """JAX's ``make_mesh`` checks over the ranks (tedm_tpu/parallel/mesh.py:44-79):
     an empty shape takes every rank on ``data``; a shape that needs more
     devices than there are ranks, or (with more than one rank) fewer, is an
-    error in JAX's words."""
+    error in JAX's words. Over the ranks of a process group (``n_devices``
+    None) it also builds the mesh's data and model groups, once per mesh."""
     n_dev = world() if n_devices is None else n_devices
     if not mesh_shape:
-        return Mesh((n_dev,), ("data",))
-    n = math.prod(mesh_shape)
-    if n > n_dev:
-        raise ValueError(f"mesh_shape {tuple(mesh_shape)} needs {n} devices, have {n_dev}")
-    if n < n_dev:
-        raise ValueError(
-            f"mesh_shape {tuple(mesh_shape)} uses {n} of {n_dev} global devices; in a multi-process "
-            "run the mesh must cover every device (subset meshes are single-process only)"
-        )
-    return Mesh(tuple(mesh_shape), tuple(mesh_axes))
+        m = Mesh((n_dev,), ("data",))
+    else:
+        if len(mesh_shape) != len(mesh_axes):
+            raise ValueError(f"mesh_shape {tuple(mesh_shape)} and mesh_axes {tuple(mesh_axes)} differ in length")
+        n = math.prod(mesh_shape)
+        if n > n_dev:
+            raise ValueError(f"mesh_shape {tuple(mesh_shape)} needs {n} devices, have {n_dev}")
+        if n < n_dev:
+            raise ValueError(
+                f"mesh_shape {tuple(mesh_shape)} uses {n} of {n_dev} global devices; in a multi-process "
+                "run the mesh must cover every device (subset meshes are single-process only)"
+            )
+        m = Mesh(tuple(mesh_shape), tuple(mesh_axes))
+    if n_devices is None and active():
+        _use(m)
+    return m
+
+
+def _groups_along(ranks: np.ndarray, axis: Optional[int]) -> List[List[int]]:
+    """The rank lists of the lines of ``ranks`` along ``axis`` (each rank
+    alone when the mesh has no such axis)."""
+    if axis is None:
+        return [[int(r)] for r in ranks.reshape(-1)]
+    return np.moveaxis(ranks, axis, -1).reshape(-1, ranks.shape[axis]).tolist()
+
+
+def _use(m: Mesh) -> None:
+    """Build ``m``'s data and model groups over the default group, unless
+    they are built; every rank calls it alike (``new_group`` is a
+    collective). Without a model axis the data group is the default one."""
+    global _axes
+    key = (m.shape, m.axis_names, dist.group.WORLD)
+    if _axes is not None and _axes.key == key:
+        return
+    if "model" not in m.axis_names:
+        _axes = _Axes(key, None, None, world(), rank(), 1, 0)
+        return
+    ranks = np.arange(world()).reshape(m.shape)
+    di = m.axis_names.index("data") if "data" in m.axis_names else None
+    mi = m.axis_names.index("model")
+    where = np.argwhere(ranks == rank())[0]
+    data, _ = dist.new_subgroups_by_enumeration(_groups_along(ranks, di), timeout=TIMEOUT)
+    model, _ = dist.new_subgroups_by_enumeration(_groups_along(ranks, mi), timeout=TIMEOUT)
+    _axes = _Axes(key, data, model, 1 if di is None else m.shape[di], 0 if di is None else int(where[di]),
+                  m.shape[mi], int(where[mi]))
 
 
 def param_shardings(params: Dict[str, torch.Tensor], n: int,
@@ -142,7 +240,7 @@ def param_shardings(params: Dict[str, torch.Tensor], n: int,
     elements is sharded on its largest dim that ``n`` divides (the first of
     equal ones), as JAX's ``param_shardings`` under ``fsdp``
     (tedm_tpu/parallel/mesh.py:90-145); small leaves (biases, norm gains)
-    stay replicated."""
+    stay replicated. The ``tp`` rule is ``tensor_parallel.plan_of``."""
     out = {}
     for name, p in params.items():
         dims = [i for i in range(p.ndim) if p.shape[i] % n == 0]
@@ -158,55 +256,56 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         y = x.clone()
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=data_group())
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        dist.all_reduce(g)
+        dist.all_reduce(g, group=data_group())
         return g
 
 
 class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
-        parts = [torch.empty_like(x) for _ in range(world())]
-        dist.all_gather(parts, x.contiguous())
+        parts = [torch.empty_like(x) for _ in range(data_world())]
+        dist.all_gather(parts, x.contiguous(), group=data_group())
         return torch.cat(parts)
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        dist.all_reduce(g)
-        return g.chunk(world())[rank()]
+        dist.all_reduce(g, group=data_group())
+        return g.chunk(data_world())[data_rank()]
 
 
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over the ranks, on every rank; autograd gives each
-    rank the sum of the ranks' gradients of it."""
-    return _AllReduceSum.apply(x) if world() > 1 else x
+    """The sum of ``x`` over the data ranks, on every rank; autograd gives
+    each rank the sum of the ranks' gradients of it."""
+    return _AllReduceSum.apply(x) if data_world() > 1 else x
 
 
 def gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``x`` concatenated on dim 0 in rank order, on every rank;
-    autograd gives each rank its rows of the sum of the ranks' gradients."""
-    return _GatherRows.apply(x) if world() > 1 else x
+    """Every data rank's ``x`` concatenated on dim 0 in rank order, on every
+    rank; autograd gives each rank its rows of the sum of the ranks'
+    gradients."""
+    return _GatherRows.apply(x) if data_world() > 1 else x
 
 
 def reduced(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over the ranks (no gradient)."""
-    if world() == 1:
+    """The sum of ``x`` over the data ranks (no gradient)."""
+    if data_world() == 1:
         return x
     x = x.detach().clone()
-    dist.all_reduce(x)
+    dist.all_reduce(x, group=data_group())
     return x
 
 
 def global_share(per_row: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """This rank's share of the masked mean over the valid rows of every
-    rank: sum(per_row * valid) / max(global valid count, 1). The shares sum
-    to the global mean; DDP's mean of per-rank means would weight a rank
+    data rank: sum(per_row * valid) / max(global valid count, 1). The shares
+    sum to the global mean; DDP's mean of per-rank means would weight a rank
     with fewer valid rows (a padded shard) as much as a full one."""
     count = reduced(valid.sum()).clamp(min=1.0)
     return (per_row * valid).sum() / count
@@ -220,6 +319,12 @@ def host_sum(values: Sequence[float]) -> List[float]:
     t = torch.tensor(list(values), dtype=torch.float64)
     dist.all_reduce(t, group=_host())
     return t.tolist()
+
+
+def rows_seen(n: int) -> float:
+    """The rows that the data ranks read, from each rank's ``n`` (the ranks
+    of a model group read the same rows)."""
+    return host_sum([n])[0] / model_world()
 
 
 def host_any(flag: bool) -> bool:
@@ -260,48 +365,70 @@ def _full(t):
 
 class DataParallel:
     """The trainers' side of the mesh (``data_parallel_setup``): ``wrap``
-    the trained module for DDP or FSDP, run micro-steps without their
-    gradient reduction (``no_sync``), reduce the replicated parameters'
-    gradients under FSDP (``finish_grads``), and read and restore the full
-    state (``state_dict``, ``optimizer_state``, ``load_optimizer_state``).
-    Identity without a process group."""
+    the trained module for DDP, FSDP or TP, ``place`` a module that is not
+    trained (the EMA, a frozen backbone) as the trained one is placed, run
+    micro-steps without their gradient reduction (``no_sync``), reduce the
+    replicated parameters' gradients under FSDP (``finish_grads``), and read
+    and restore the full state (``state_dict``, ``optimizer_state``,
+    ``load_optimizer_state``). Identity without a process group."""
 
-    def __init__(self, mode: str = "replicated", fsdp_min_size: int = 2 ** 14):
-        self.world = world()
+    def __init__(self, mode: str = "replicated", fsdp_min_size: int = 2 ** 14, tp_min_width: int = 256):
+        self.world = data_world()
         self.mode = mode if active() else "none"
+        self.plan = model_plan()
+        if self.mode == "tp" and self.plan is None:
+            raise ValueError(TP_NEEDS_MODEL)
         self.fsdp_min_size = fsdp_min_size
+        self.tp_min_width = tp_min_width
         self._replicated: List[nn.Parameter] = []
         self._order: List[nn.Parameter] = []  # the optimizer's parameters, in the caller's order
 
     def wrap(self, module: nn.Module, find_unused: bool = False) -> nn.Module:
-        """The module to call: ``module`` under DDP (its state stays
-        ``module``'s, without a ``module.`` prefix), or ``module`` sharded in
-        place by FSDP2, or ``module`` itself without a group. Only the
-        parameters that take gradients are reduced; build the optimizer
-        after this call (FSDP replaces the parameters)."""
+        """The module to call: ``module`` under DDP over the data group (its
+        state stays ``module``'s, without a ``module.`` prefix), under TP
+        first sharded over the model group, or ``module`` sharded in place
+        by FSDP2, or ``module`` itself without a group. Only the parameters
+        that take gradients are reduced; build the optimizer after this call
+        (FSDP and TP replace the parameters)."""
         if self.mode == "none":
             return module
         if self.mode == "fsdp":
             self.shard(module)
             return module
+        if self.mode == "tp":
+            self.place(module)
         dev = next(module.parameters()).device
         return nn.parallel.DistributedDataParallel(
             module, device_ids=[dev] if dev.type == "cuda" else None, broadcast_buffers=False,
-            find_unused_parameters=find_unused,
+            find_unused_parameters=find_unused, process_group=data_group(),
         )
+
+    def place(self, module: nn.Module) -> None:
+        """Shard ``module`` in place as the trained module is sharded: by
+        FSDP2, or by the ``tp`` rule over the model group (``tensor_parallel``);
+        nothing otherwise."""
+        if self.mode == "fsdp":
+            self.shard(module)
+        elif self.mode == "tp":
+            tensor_parallel.shard(module, self.plan, self.tp_min_width)
 
     def shard(self, module: nn.Module) -> None:
         """FSDP2 over ``module`` by ``param_shardings``' rule: each block of
         a ``ModuleList`` is a unit of its own, then the module; the
-        replicated parameters stay whole on every rank."""
-        from torch.distributed.device_mesh import init_device_mesh
+        replicated parameters stay whole on every rank. On a mesh with a
+        model axis the data group's ranks shard and the model ranks are
+        replicas."""
+        from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
         from torch.distributed.fsdp import fully_shard
         from torch.distributed.tensor import Shard
 
         from tedm_tpu_torch.kernels import layouts
 
         dev = next(module.parameters()).device
-        mesh = init_device_mesh(dev.type, (self.world,), mesh_dim_names=("data",))
+        if data_group() is None:
+            mesh = init_device_mesh(dev.type, (self.world,), mesh_dim_names=("data",))
+        else:
+            mesh = DeviceMesh.from_group(data_group(), dev.type, mesh_dim_names=("data",))
         dims = param_shardings(dict(module.named_parameters()), self.world, self.fsdp_min_size)
         by_param = {p: dims[n] for n, p in module.named_parameters()}
         replicated = [p for p, d in by_param.items() if d is None]  # in the module's order, on every rank
@@ -342,7 +469,7 @@ class DataParallel:
         if self.mode != "fsdp" or not grads:
             return
         flat = torch.cat([g.flatten() for g in grads])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=data_group())
         flat /= self.world
         torch._foreach_copy_(grads, [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)])
 
@@ -365,16 +492,27 @@ class DataParallel:
         return [pos[id(p)] for g in optimizer.param_groups for p in g["params"]]
 
     def state_dict(self, module: nn.Module) -> Dict[str, torch.Tensor]:
-        """``module``'s full state_dict (a DDP wrapper's module's; FSDP's
-        shards gathered, a collective: every rank calls it)."""
+        """``module``'s full state_dict (a DDP wrapper's module's; FSDP's and
+        TP's shards gathered, a collective: every rank calls it)."""
         if isinstance(module, nn.parallel.DistributedDataParallel):
             module = module.module
+        if self.mode == "tp":
+            return tensor_parallel.full_state_dict(module)
         return {k: _full(v) for k, v in module.state_dict().items()}
 
+    def _flat_params(self, optimizer: torch.optim.Optimizer) -> List[nn.Parameter]:
+        return [p for g in optimizer.param_groups for p in g["params"]]
+
     def optimizer_state(self, optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
-        """The optimizer's state_dict with FSDP's shards of Adam's moments
-        gathered, keyed as one process keys it (a collective)."""
+        """The optimizer's state_dict with FSDP's and TP's shards of Adam's
+        moments gathered, keyed as one process keys it (a collective)."""
         sd = optimizer.state_dict()
+        if self.mode == "tp":
+            params = self._flat_params(optimizer)
+            whole = lambda p, v: (tensor_parallel.all_gather(v, p.tp, 0)
+                                  if tensor_parallel.is_sharded(p) and torch.is_tensor(v) and v.shape == p.shape else v)
+            sd["state"] = {i: {k: whole(params[i], v) for k, v in s.items()} for i, s in sd["state"].items()}
+            return sd
         sd["state"] = {i: {k: _full(v) for k, v in s.items()} for i, s in sd["state"].items()}
         if self.mode == "fsdp":  # one group, indexed as the caller ordered the parameters
             pos = self._positions(optimizer)
@@ -386,7 +524,15 @@ class DataParallel:
     def load_optimizer_state(self, optimizer: torch.optim.Optimizer, state: Dict[str, Any]) -> None:
         """Restore a full optimizer state (``optimizer_state``'s, or one
         process's) into an optimizer over this rank's parameters, sharding
-        the moments of FSDP's parameters as the parameters are."""
+        the moments of FSDP's and TP's parameters as the parameters are."""
+        if self.mode == "tp":
+            params = self._flat_params(optimizer)
+            mine = lambda p, v: (v.chunk(p.tp.size, dim=0)[p.tp.index].clone()
+                                 if tensor_parallel.is_sharded(p) and torch.is_tensor(v) and v.ndim == p.ndim
+                                 and v.shape[0] == p.shape[0] * p.tp.size else v)
+            optimizer.load_state_dict({**state, "state": {i: {k: mine(params[i], v) for k, v in s.items()}
+                                                          for i, s in state["state"].items()}})
+            return
         if self.mode != "fsdp":
             optimizer.load_state_dict(state)
             return
@@ -408,18 +554,31 @@ class DataParallel:
                         st[k] = distribute_tensor(v.to(p.device), p.device_mesh, p.placements)
 
 
+TP_NEEDS_MODEL = ("--param_sharding tp needs a 'model' mesh axis, e.g. "
+                  "--mesh_shape 4 2 --mesh_axes data model")
+
+
+def check_config(config) -> None:
+    """JAX's refusal of ``tp`` without a ``model`` axis
+    (tedm_tpu/parallel/mesh.py:181-185), in its words."""
+    if config.param_sharding == "tp" and "model" not in tuple(config.mesh_axes):
+        raise ValueError(TP_NEEDS_MODEL)
+
+
 def data_parallel_setup(config, device: Union[str, torch.device] = "cuda") -> DataParallel:
     """The trainers' wiring (the port of JAX's ``data_parallel_setup``): the
-    mesh checks of ``make_mesh`` and a ``DataParallel`` for
+    mesh checks of ``make_mesh`` (and its groups) and a ``DataParallel`` for
     ``config.param_sharding``; identity without a process group."""
+    check_config(config)
     make_mesh(tuple(config.mesh_shape), tuple(config.mesh_axes))
-    return DataParallel(config.param_sharding, config.fsdp_min_size)
+    return DataParallel(config.param_sharding, config.fsdp_min_size, config.tp_min_width)
 
 
 def loader_shard() -> Dict[str, int]:
     """The train loader's shard of this rank (``shard_index``,
-    ``shard_count``), as JAX passes its process index and count."""
-    return {"shard_index": rank(), "shard_count": world()}
+    ``shard_count``): its data rank and the data axis's size, as JAX passes
+    its process index and count; the ranks of a model group read alike."""
+    return {"shard_index": data_rank(), "shard_count": data_world()}
 
 
 def local_tensors(tensors: Iterable[torch.Tensor]) -> List[torch.Tensor]:

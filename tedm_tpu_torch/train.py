@@ -8,15 +8,28 @@
 The flags are the JAX package's (``tedm_tpu_torch.config.build_parser``).
 Training runs on the card; ``main(argv, device="cpu")`` runs the plain
 PyTorch path on the CPU. The flags whose features the port does not have
-yet (ROADMAP item A.5h) raise ``NotImplementedError`` naming their
-item.
+yet (spatial sharding, ROADMAP item A.5h) raise ``NotImplementedError``
+naming their item; the combinations JAX refuses raise JAX's error.
 
 Data parallel (``parallel/mesh.py``): one process per card, launched by
 torchrun with ``--multihost``; ``--batch_size`` is per rank, so the global
-batch is the number of ranks times it:
+batch is the number of data ranks times it:
 
     torchrun --nproc_per_node 8 -m tedm_tpu_torch.train --multihost \
         --experiment img_only [--param_sharding fsdp] ...
+
+Tensor parallel over a ``model`` axis (``parallel/tensor_parallel.py``): D
+data ranks times M model ranks, the ranks of one model group reading the
+same rows:
+
+    torchrun --nproc_per_node 8 -m tedm_tpu_torch.train --multihost \
+        --mesh_shape 4 2 --mesh_axes data model --param_sharding tp \
+        [--tp_min_width 256] --experiment img_only ...
+
+``--data_backend device`` renders the synthetic images on the card
+(``data/device_synthetic.py``, needs ``--synthetic_data``); ``grain`` reads
+through grain (``data/grain_pipeline.py``) and raises where grain is not
+installed.
 """
 
 from __future__ import annotations
@@ -32,14 +45,11 @@ from tedm_tpu_torch.utils.device import strict_fp32
 DIFFUSION_EXPERIMENTS = ("img_only", "joint", "conditional", "joint_and_cond")
 HEAD_EXPERIMENTS = ("LEDM", "LEDMe", "TEDM")
 
-# (flag, is it set, the ROADMAP item that ports its feature): the mesh's
-# axes other than 'data' (tensor parallel, spatial sharding) and the other
-# input pipelines
+# (flag, is it set, the ROADMAP item that ports its feature): spatial
+# sharding, its flag and any mesh axis but 'data' and 'model'
 NOT_PORTED = (
-    ("--param_sharding", lambda c: c.param_sharding == "tp", "A.5h"),
     ("--shard_spatial", lambda c: c.shard_spatial, "A.5h"),
-    ("--mesh_axes", lambda c: tuple(c.mesh_axes) != ("data",), "A.5h"),
-    ("--data_backend", lambda c: c.data_backend != "threads", "A.5h"),
+    ("--mesh_axes", lambda c: any(a not in ("data", "model") for a in c.mesh_axes), "A.5h"),
 )
 
 
@@ -68,7 +78,8 @@ def dispatch(config: Config, device: Union[str, torch.device] = "cuda") -> None:
         )
     for flag, is_set, item in NOT_PORTED:
         if is_set(config):
-            raise NotImplementedError(f"{flag} is not ported yet: ROADMAP item {item}")
+            raise NotImplementedError(f"{flag} (spatial sharding) is not ported yet: ROADMAP item {item}")
+    mesh.check_config(config)
     if config.multihost:
         device = mesh.init_multihost(device)
     mesh.make_mesh(tuple(config.mesh_shape), tuple(config.mesh_axes))

@@ -73,7 +73,7 @@ def main(config: Config, device: Union[str, torch.device] = "cuda") -> None:
         "JSRT", config.data_dir, config.img_size, config.batch_size,
         config.num_workers, config.n_labelled_images, seed=config.seed,
         synthetic=config.synthetic_data, splits_dir=config.splits_dir,
-        **mesh.loader_shard(),
+        backend=config.data_backend, device=device, **mesh.loader_shard(),
     )
     print(f"Loaded {len(loaders['train'].indices)} training and "
           f"{len(loaders['val'].indices)} validation images")

@@ -42,8 +42,13 @@ Under data parallelism (``parallel/mesh.py``) ``trained`` is wrapped for DDP
 or FSDP, each rank reads its shard of the train set and draws its own
 noise, and the loss is the masked mean over the valid rows of every rank
 (``mesh.global_share``): its share on each rank, the global value in the
-logs. The best-validation checkpoint, the early stop and a signal are
-decided on values reduced over the ranks; rank 0 writes.
+logs. Under ``--param_sharding tp`` every module of the task is sharded by
+the ``tp`` rule over the model group, the frozen backbone too, as JAX puts
+a head's ``batch_stats`` (where its backbone rides) through the rule
+(tedm_tpu/trainers/common.py:216-219); the ranks of one model group read
+the same rows and draw alike. The best-validation checkpoint, the early
+stop and a signal are decided on values reduced over the ranks; rank 0
+writes.
 """
 
 from __future__ import annotations
@@ -90,12 +95,16 @@ def unet_kernels(config: Config) -> Dict[str, bool]:
                 flash_attention=config.use_pallas_flash, use_pallas=config.use_pallas)
 
 
-def to_nchw(a: np.ndarray, device: Union[str, torch.device]) -> torch.Tensor:
-    """An NHWC numpy batch as a contiguous NCHW float32 tensor on ``device``.
-    The layout is made on the host, with NCHW's own strides: at C = 1 a
-    transposed NHWC array keeps a channel stride of 1, which torch reads as
-    channels-last, so cuDNN would run every convolution channels-last and
-    the kernels, which take NCHW activations, would refuse the input."""
+def to_nchw(a: Union[np.ndarray, torch.Tensor], device: Union[str, torch.device]) -> torch.Tensor:
+    """An NHWC numpy batch as a contiguous NCHW float32 tensor on ``device``;
+    a tensor (the ``device`` backend's batches, NCHW already) as a
+    contiguous NCHW float32 tensor there. The layout is made with NCHW's own
+    strides: at C = 1 a transposed NHWC array keeps a channel stride of 1,
+    which torch reads as channels-last, so cuDNN would run every
+    convolution channels-last and the kernels, which take NCHW activations,
+    would refuse the input."""
+    if torch.is_tensor(a):
+        return a.to(device, torch.float32).contiguous(memory_format=torch.contiguous_format)
     x = torch.from_numpy(np.asarray(a, np.float32)).permute(0, 3, 1, 2)
     return x.clone(memory_format=torch.contiguous_format).to(device)
 
@@ -136,7 +145,8 @@ def make_train_step(task, optimizer: torch.optim.Optimizer, frozen: Sequence[tor
     get zero gradients and keep their values (module docstring). Each rank
     back-propagates ``world`` times its share of the global masked mean,
     which DDP's mean over the ranks turns into the global gradient (in one
-    process: the masked mean itself), and both values come back global;
+    process: the masked mean itself; ``world`` is the data axis's size), and
+    both values come back global;
     ``dp`` reduces the gradients FSDP leaves to it."""
     frozen = list(frozen)
 
@@ -147,7 +157,7 @@ def make_train_step(task, optimizer: torch.optim.Optimizer, frozen: Sequence[tor
         per_img, _ = masked_bce_per_image(logits, y_f, valid_f)
         loss = mesh.global_share(per_img, valid_f)
         optimizer.zero_grad(set_to_none=True)
-        (loss * mesh.world()).backward()
+        (loss * mesh.data_world()).backward()
         if dp is not None:
             dp.finish_grads()
         if freeze and frozen:
@@ -244,6 +254,10 @@ def train_segmentation(
     names = {id(p): n for n, p in task.trained.named_parameters()}
     frozen_names = [names[id(p)] for p in frozen]
     raw = task.trained
+    if dp.mode == "tp":  # a head's frozen backbone goes through the rule too
+        for module in task.modules.values():
+            if module is not raw:
+                dp.place(module)
     task = dataclasses.replace(task, **{task.TRAINED: dp.wrap(raw, find_unused=True)})
     params = dict(raw.named_parameters())
     optimizer = make_optimizer(config, dp.optimizer_params(task.trained.parameters()))
@@ -279,7 +293,7 @@ def train_segmentation(
                 # read the window's losses (waiting for its steps) before the clock
                 window_loss = torch.stack(train_losses).mean().item()
                 dt = time.time() - t0
-                imgs_seen = mesh.host_sum([imgs_seen])[0]
+                imgs_seen = mesh.rows_seen(imgs_seen)
                 logs = {"train/loss": window_loss, "train/imgs_per_sec": imgs_seen / max(dt, 1e-9)}
                 if task.fold > 1:
                     mean_fold = torch.stack(fold_losses).mean(dim=0).tolist()

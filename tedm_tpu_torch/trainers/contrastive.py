@@ -114,7 +114,7 @@ def make_steps(config: Config, model: torch.nn.Module, optimizer: torch.optim.Op
 
     def loss_of(views, generator, centres):
         feats = forward(views)
-        b, n = views.shape[0] // 2, mesh.world()
+        b, n = views.shape[0] // 2, mesh.data_world()
         if isinstance(model, GlobalCL):
             # (rank, view, row) -> (view, rank, row): JAX's layout of the global batch
             f = mesh.gather_rows(feats).reshape(n, 2, b, -1).transpose(0, 1).reshape(2 * n * b, -1)
@@ -177,7 +177,7 @@ def _train_cl(config: Config, model: torch.nn.Module, device: torch.device) -> N
     loaders = build_dataloaders(
         "CXR14", config.data_dir, config.img_size, config.batch_size, config.num_workers,
         seed=config.seed, synthetic=config.synthetic_data, splits_dir=config.splits_dir, drop_last=True,
-        **mesh.loader_shard(),
+        backend=config.data_backend, device=device, **mesh.loader_shard(),
     )
     logger = MetricsLogger(config.log_dir, config, enabled=not config.debug)
 
@@ -199,7 +199,7 @@ def _train_cl(config: Config, model: torch.nn.Module, device: torch.device) -> N
                 # read the window's losses (waiting for its steps) before the clock
                 window_loss = torch.stack(train_losses).mean().item()
                 dt = time.time() - t0
-                imgs = mesh.host_sum([imgs])[0]
+                imgs = mesh.rows_seen(imgs)
                 logger.log({"train/loss": window_loss, "train/imgs_per_sec": imgs / max(dt, 1e-9)}, step)
                 train_losses, t0, imgs = [], time.time(), 0
 
@@ -279,7 +279,8 @@ def main_finetune(config: Config, device: Union[str, torch.device] = "cuda") -> 
     loaders = build_dataloaders(
         "JSRT", config.data_dir, config.img_size, config.batch_size,
         config.num_workers, config.n_labelled_images, seed=config.seed,
-        synthetic=config.synthetic_data, splits_dir=config.splits_dir, **mesh.loader_shard(),
+        synthetic=config.synthetic_data, splits_dir=config.splits_dir, backend=config.data_backend, device=device,
+        **mesh.loader_shard(),
     )
     if config.augment_at_finetuning:
         loaders = dict(loaders, train=AugmentedLoader(loaders["train"], mesh.rank_seed(config.seed)))

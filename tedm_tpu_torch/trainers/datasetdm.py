@@ -139,7 +139,7 @@ def main(config: Config, device: Union[str, torch.device] = "cuda") -> None:
         "JSRT", config.data_dir, config.img_size, config.batch_size,
         config.num_workers, config.n_labelled_images, seed=config.seed,
         synthetic=config.synthetic_data, splits_dir=config.splits_dir,
-        **mesh.loader_shard(),
+        backend=config.data_backend, device=device, **mesh.loader_shard(),
     )
     logger = MetricsLogger(config.log_dir, config, enabled=not config.debug)
     train_segmentation(config, task, loaders, logger)

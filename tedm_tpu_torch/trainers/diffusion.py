@@ -137,7 +137,7 @@ def make_steps(
     def train_step(x, cond, valid, generator=None, t=None, noise=None):
         optimizer.zero_grad(set_to_none=True)
         valid = valid.float()
-        n = mesh.world()
+        n = mesh.data_world()
         # microbatch i's loss is the masked mean over its own rows; weighted
         # by w_i = max(its valid count, 1) and divided by the global count
         # (every rank's rows) it adds up to the global masked mean, loss and
@@ -192,18 +192,25 @@ def make_steps(
     return Steps(train_step, eval_step, sample_grid)
 
 
+def _f32(a):
+    return a.float() if torch.is_tensor(a) else a.astype(np.float32)
+
+
 def batch_to_x_cond(config: Config, batch: Dict[str, np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
-    """Per-mode (x_0, cond), NHWC numpy: img_only -> (image, dummy); joint ->
-    (cat(image, mask), dummy); conditional -> (mask, image in [-1, 1]);
-    joint_and_cond -> (image, mask in [-1, 1])."""
+    """Per-mode (x_0, cond), NHWC numpy (NCHW tensors from the ``device``
+    backend): img_only -> (image, dummy); joint -> (cat(image, mask),
+    dummy); conditional -> (mask, image in [-1, 1]); joint_and_cond ->
+    (image, mask in [-1, 1])."""
     img = batch["image"]
     dummy = np.zeros((1, 1, 1, 1), np.float32)
     if config.experiment == "joint":
+        if torch.is_tensor(img):
+            return torch.cat([img, batch["mask"]], dim=1), dummy
         return np.concatenate([img, batch["mask"]], axis=-1), dummy
     if config.experiment == "conditional":
-        return batch["mask"], img.astype(np.float32) * 2.0 - 1.0
+        return batch["mask"], _f32(img) * 2.0 - 1.0
     if config.experiment == "joint_and_cond":
-        return img, batch["mask"].astype(np.float32) * 2.0 - 1.0
+        return img, _f32(batch["mask"]) * 2.0 - 1.0
     return img, dummy
 
 
@@ -257,8 +264,7 @@ def main(config: Config, device: Union[str, torch.device] = "cuda") -> None:
         ema = copy.deepcopy(unet).requires_grad_(False)
         if ema_state is not None:
             ema.load_state_dict(ema_state)
-        if dp.mode == "fsdp":
-            dp.shard(ema)  # sharded as the weights it follows
+        dp.place(ema)  # sharded as the weights it follows (FSDP, TP)
     model = dp.wrap(unet)
     # --weight_decay as the supervised loop honours it; the reference
     # diffusion trainer is plain Adam, the default
@@ -269,7 +275,8 @@ def main(config: Config, device: Union[str, torch.device] = "cuda") -> None:
     # the JSRT modes need masks (reference: train_base_diffusion.py:26-32)
     loaders = build_dataloaders(
         "CXR14" if config.experiment == "img_only" else "JSRT", config.data_dir, config.img_size, config.batch_size, config.num_workers,
-        seed=config.seed, synthetic=config.synthetic_data, splits_dir=config.splits_dir, **mesh.loader_shard(),
+        seed=config.seed, synthetic=config.synthetic_data, splits_dir=config.splits_dir, backend=config.data_backend,
+        device=dev, **mesh.loader_shard(),
     )
     logger = MetricsLogger(config.log_dir, config, enabled=not config.debug)
     steps = make_steps(config, model, sched, optimizer, ema, dp)
@@ -304,7 +311,7 @@ def main(config: Config, device: Union[str, torch.device] = "cuda") -> None:
                 # read the window's losses (waiting for its steps) before the clock
                 window_loss = torch.stack(train_losses).mean().item()
                 dt = time.time() - t0
-                imgs = mesh.host_sum([imgs])[0]
+                imgs = mesh.rows_seen(imgs)
                 metrics = {"train/loss": window_loss, "train/imgs_per_sec": imgs / max(dt, 1e-9)}
                 if channel_losses:
                     ch = torch.stack(channel_losses).mean(dim=0).tolist()

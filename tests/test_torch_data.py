@@ -13,7 +13,6 @@ from tedm_tpu.data.pipeline import build_dataloaders as jax_build_dataloaders
 from tedm_tpu_torch.config import config_from_args
 from tedm_tpu_torch.data.datasets import SyntheticCXRDataset
 from tedm_tpu_torch.data.pipeline import Loader, build_dataloaders
-from tedm_tpu_torch.train import main as train_main
 
 
 @pytest.mark.parametrize("hard", [False, True])
@@ -60,8 +59,10 @@ def test_build_dataloaders_matches_jax_and_refuses_real_data(tmp_path):
         np.testing.assert_array_equal(next(iter(ours[split]))["image"], next(iter(theirs[split]))["image"])
     cxr = build_dataloaders("CXR14", None, img_size=16, batch_size=4, num_workers=1)
     assert not cxr["train"].has_labels and len(cxr["val"]) == 512
-    with pytest.raises(NotImplementedError, match="--data_backend .*A.5h"):  # the grain and device backends
-        train_main(["--data_backend", "grain", "--synthetic_data", "--log_dir", str(tmp_path / "r")], device="cpu")
+    with pytest.raises(ValueError, match="requires synthetic data"):  # the device backend renders synthetic images
+        build_dataloaders("JSRT", str(tmp_path), backend="device", **{**kw, "synthetic": False})
+    ours, theirs = (f("JSRT", None, backend="grain", **kw) for f in (build_dataloaders, jax_build_dataloaders))
+    np.testing.assert_array_equal(next(iter(ours["train"]))["image"], next(iter(theirs["train"]))["image"])
 
 
 @pytest.mark.parametrize(

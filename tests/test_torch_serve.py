@@ -103,7 +103,7 @@ def test_entry_points_refuse_cpu_without_cuda(monkeypatch, tmp_path):
 
 def test_unported_experiment_names_its_roadmap_item(tmp_path, monkeypatch):
     """The contrastive finetunes are served as baseline UNets; what the port
-    still refuses (the flags of ROADMAP A.5h beyond the data axis) names its
+    still refuses (spatial sharding, the rest of ROADMAP A.5h) names its
     item; ``--multihost`` without torchrun's environment and a
     ``--mesh_shape`` the ranks do not fill are errors in JAX's words."""
     for experiment in ("global_finetune", "glob_loc_finetune"):
@@ -114,7 +114,7 @@ def test_unported_experiment_names_its_roadmap_item(tmp_path, monkeypatch):
     assert {item for _, _, item in NOT_PORTED} == {"A.5h"}
     for flag, _, item in NOT_PORTED:
         value = {"--remat": [], "--multihost": [], "--shard_spatial": [], "--mesh_shape": ["2"],
-                 "--mesh_axes": ["data", "model"], "--param_sharding": ["tp"], "--data_backend": ["grain"],
+                 "--mesh_axes": ["data", "spatial"],
                  "--profile_dir": ["p"]}[flag]
         with pytest.raises(NotImplementedError, match=f"{flag} .*ROADMAP item {item}"):
             train_main(["--synthetic_data", "--log_dir", str(tmp_path / "r"), flag, *value], device="cpu")
