@@ -159,6 +159,18 @@ Phases, each of which exits non-zero on failure:
      batches are rendered on the card, and one index rendering the same
      pixels in batches of other composition; (d) ``--data_backend grain``:
      trains where grain imports, else refuses, naming the package;
+ 20. the spatial mesh axis (``parallel/spatial.py``): (a) path (a) at batch
+     16 under ``--mesh_shape 1 1 --mesh_axes data spatial --shard_spatial``
+     in a world of one under NCCL, in fp32, bf16 and fp32 with groupnorm +
+     resblock + flash, SP_STEPS steps each, against the run without a
+     group: losses and parameters bit for bit, launches a step equal; (b)
+     SP of 2 ranks on the one card over gloo, mesh (1, 2), each rank holding
+     64 of the 128 rows: a backbone step (batch 4) in fp32 (B.1, B.1b) and
+     in bf16 with resblock + flash (B.2, B.4, B.4b, B.5, on gathered maps)
+     and a TEDM head step with groupnorm (B.3, B.1), each against one
+     process on the same batch at phases 6 and 10's gates, both ranks'
+     parameters equal, each rank's launches one process's, and each rank's
+     peak memory beside one process's (a record);
 then one JSON line listing every kernel and the final JSON status line.
 """
 
@@ -2376,18 +2388,18 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def dp_run(tmp, flags, mode, label):
-    """One backbone run of phase 18: DP_STEPS steps at batch 16 through
+def dp_run(tmp, flags, mode, label, steps=DP_STEPS, gate_step=DP_GATE_STEP):
+    """One backbone run of phase 18: ``steps`` steps at batch 16 through
     train.main, without a process group (``mode`` None) or in a world of one
     under ``--multihost`` (``replicated``: DDP; ``fsdp``: FSDP2). Returns the
-    losses, the parameters after step DP_GATE_STEP, the launches a step and
+    losses, the parameters after step ``gate_step``, the launches a step and
     the median step ms of steps 2 on."""
     from tedm_tpu_torch.config import config_from_args
     from tedm_tpu_torch.train import main as train_main
     from tedm_tpu_torch.utils.checkpoint import load_checkpoint
 
-    argv = ["--experiment", "img_only", "--synthetic_data", "--max_steps", str(DP_STEPS), "--log_freq", "1",
-            "--val_freq", str(10 * DP_STEPS), "--ckpt_every", str(DP_GATE_STEP), "--seed", str(SEED),
+    argv = ["--experiment", "img_only", "--synthetic_data", "--max_steps", str(steps), "--log_freq", "1",
+            "--val_freq", str(10 * steps), "--ckpt_every", str(gate_step), "--seed", str(SEED),
             "--log_dir", os.path.join(tmp, "dp", label.replace(" ", "_")), *flags]
     if mode is not None:
         argv += ["--multihost", "--param_sharding", mode]
@@ -2397,10 +2409,10 @@ def dp_run(tmp, flags, mode, label):
     torch.cuda.synchronize()
     counts = read_launches()
     recs = [r for r in read_metrics(cfg.log_dir) if "train/loss" in r]
-    state, _ = load_checkpoint(os.path.join(cfg.log_dir, f"step_{DP_GATE_STEP}"), verbose=False)
+    state, _ = load_checkpoint(os.path.join(cfg.log_dir, f"step_{gate_step}"), verbose=False)
     step_ms = [1e3 * cfg.batch_size / r["train/imgs_per_sec"] for r in recs]
     return {"losses": [r["train/loss"] for r in recs], "params": state["params"],
-            "per_step": {k: v / DP_STEPS for k, v in counts.items()}, "counts": counts,
+            "per_step": {k: v / steps for k, v in counts.items()}, "counts": counts,
             "step_ms": statistics.median(step_ms[1:]), "all_step_ms": step_ms}
 
 
@@ -3132,6 +3144,189 @@ def phase_19(tmp):
     return runs + runs2, report
 
 
+# ------------------------------------------------------------------ phase 20
+
+SP_AXES = ("--mesh_axes", "data", "spatial", "--shard_spatial")
+SP_PATHS = ((), ("--mixed_precision",), ("--use_pallas_groupnorm", "--use_pallas_resblock", "--use_pallas_flash"))
+SP_STEPS = 3                   # path (a) steps of each phase-20 (a) run; the parameters are compared after the last
+SP_TWO_PATHS = ((), ("--mixed_precision", "--use_pallas_resblock", "--use_pallas_flash"))
+
+
+def sp_world_of_one(tmp):
+    """Phase 20 (a): --shard_spatial on a (1, 1) data x spatial mesh in a
+    world of one under NCCL, path (a) at batch 16 in fp32, bf16, and fp32
+    with groupnorm + resblock + flash, each against the run without a group:
+    losses and parameters bit for bit, launches a step equal. Returns the
+    runs' launches by path and the measurements."""
+    runs, report = [], {}
+    for flags in SP_PATHS:
+        mixed = "--mixed_precision" in flags
+        kernel_flags = tuple(f for f in flags if f != "--mixed_precision")
+        label = label_of(mixed, kernel_flags) + "backbone SP"
+        one = dp_run(tmp, flags, None, label + " plain", SP_STEPS, SP_STEPS)
+        got = dp_run(tmp, (*flags, "--mesh_shape", "1", "1", *SP_AXES), "replicated", label, SP_STEPS, SP_STEPS)
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], one["losses"]))
+        param_err = max(((got["params"][k] - v).abs().max() / v.abs().max().clamp(min=1e-12)).item()
+                        for k, v in one["params"].items())
+        print(f"phase 20 {label} (mesh 1 x 1 over data and spatial, world of one, NCCL): losses {got['losses']} "
+              f"against {one['losses']} without a group (largest relative difference {loss_err:.3e}, gate 0); "
+              f"parameters after step {SP_STEPS}: largest difference {param_err:.3e} of a tensor's largest entry "
+              f"(gate 0); launches a step {({k: v for k, v in got['per_step'].items() if v})} (without a group "
+              f"{({k: v for k, v in one['per_step'].items() if v})}); median step {got['step_ms']:.3f} ms against "
+              f"{one['step_ms']:.3f} ms", flush=True)
+        if len(got["losses"]) != SP_STEPS or loss_err != 0.0 or param_err != 0.0:
+            fail(f"phase 20 {label}: losses or parameters not bit for bit those of the run without a group")
+        if got["per_step"] != one["per_step"] or one["per_step"] != per_unet_call(mixed, kernel_flags, backward=True):
+            fail(f"phase 20 {label}: launches a step {got['per_step']}, without a group {one['per_step']}")
+        runs.append((f"{label_of(mixed, kernel_flags)}training (a) SP 1x1", got["counts"]))
+        report[label] = {"step_ms": got["step_ms"], "plain_step_ms": one["step_ms"], "loss_err": loss_err,
+                         "param_err": param_err, "launches_per_step": {k: v for k, v in got["per_step"].items() if v}}
+    return runs, report
+
+
+def _sp_gloo_rank(rank, out):
+    """A rank of phase 20 (b): --shard_spatial over a (1, 2) data x spatial
+    mesh on the card over gloo: each rank holds 64 of the 128 rows."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    try:
+        dist.init_process_group("gloo", store=dist.FileStore(os.path.join(out, "store"), 2), rank=rank,
+                                world_size=2, timeout=datetime.timedelta(seconds=300))
+        torch.cuda.set_device(0)
+        from tedm_tpu_torch.parallel import mesh
+
+        mesh.make_mesh((1, 2), ("data", "spatial"))
+        batch = torch.load(os.path.join(out, "batch.pt"), weights_only=False)
+        t0 = time.perf_counter()
+        for key in (*SP_TWO_PATHS, "TEDM"):
+            reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            dp = mesh.DataParallel("replicated", shard_spatial=True)
+            step = tp_head_step(batch, dp) if key == "TEDM" else tp_backbone_step(batch, key, dp)
+            torch.cuda.synchronize()
+            step.pop("module", None)
+            step.pop("backbone", None)
+            res[key] = {**step, "counts": read_launches(), "peak_bytes": torch.cuda.max_memory_allocated()}
+        res["seconds"] = time.perf_counter() - t0
+        dist.destroy_process_group()
+    except Exception:
+        res = {"error": traceback.format_exc()[-2000:]}
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+
+
+def sp_two_ranks(tmp):
+    """Phase 20 (b): --shard_spatial on 2 ranks on the one card over gloo,
+    mesh (1, 2): a backbone step in fp32 and in bf16 resblock + flash (batch
+    4, 128^2), and a TEDM head step with groupnorm (batch 1), each against
+    one process on the same batch at phase 6's and 10's gates; the kernels
+    each rank launched against one process's; each rank's peak memory
+    against one process's (a record). Returns the runs' launches and the
+    measurements."""
+    import torch.multiprocessing as mp
+
+    out = os.path.join(tmp, "sp", "two")
+    os.makedirs(out, exist_ok=True)
+    batch = tp_inputs(out)
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_sp_gloo_rank, args=(r, out)) for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    secs = time.perf_counter() - t0
+    ranks = [torch.load(f, weights_only=False) if os.path.exists(f := os.path.join(out, f"rank{r}.pt"))
+             else {"error": "no result"} for r in range(2)]
+    errors = [r["error"] for r in ranks if "error" in r]
+    if errors:
+        fail(f"phase 20: SP on 2 ranks: {errors}")
+    runs, report = [], {"seconds": secs, "rank_seconds": ranks[0]["seconds"]}
+    cases = [(flags, label_of("--mixed_precision" in flags, tuple(f for f in flags if f != "--mixed_precision"))
+              + "backbone step", lambda flags=flags: tp_backbone_step(batch, flags)) for flags in SP_TWO_PATHS]
+    cases.append(("TEDM", "--use_pallas_groupnorm TEDM head step", lambda: tp_head_step(batch)))
+    for key, label, one_step in cases:
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        one = one_step()
+        torch.cuda.synchronize()
+        one_counts, one_peak = read_launches(), torch.cuda.max_memory_allocated() - base
+        one.pop("module", None)
+        one.pop("backbone", None)
+        mixed = "--mixed_precision" in key
+        loss_tol, grad_tol = (BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL) if mixed else (STEP_LOSS_TOL, STEP_GRAD_TOL)
+        r0, r1 = ranks[0][key], ranks[1][key]
+        loss_err = abs(r0["loss"] - one["loss"]) / abs(one["loss"])
+        grad_errs = {n: rel_err(r0["grads"][n], g) for n, g in one["grads"].items()}
+        worst = max(grad_errs, key=grad_errs.get)
+        same = r0["loss"] == r1["loss"] and all(torch.equal(v, r1["params"][n]) for n, v in r0["params"].items())
+        peaks = [r[key]["peak_bytes"] for r in ranks]
+        h = batch["x"].shape[2]
+        print(f"phase 20 SP of 2 ranks on the one card over gloo, mesh 1 x 2 over data and spatial ({h // 2} of {h} "
+              f"rows a rank), {label} at batch {TP_ROWS if key != 'TEDM' else 1} against one process on the same batch: "
+              f"loss {r0['loss']:.6f} vs {one['loss']:.6f} (relative {loss_err:.2e}, tol {loss_tol}); gradients of "
+              f"{len(grad_errs)} tensors, worst relative to the tensor's largest entry {grad_errs[worst]:.2e} at "
+              f"{worst} (tol {grad_tol}); both ranks' loss and parameters equal: {same}; launches on rank 0 "
+              f"{({k: v for k, v in r0['counts'].items() if v})}, rank 1 "
+              f"{({k: v for k, v in r1['counts'].items() if v})}, one process "
+              f"{({k: v for k, v in one_counts.items() if v})}; peak memory a rank {[round(p / 2**30, 3) for p in peaks]} "
+              f"GiB, one process {one_peak / 2**30:.3f} GiB (the same step, above what the process held before it)",
+              flush=True)
+        if not (math.isfinite(one["loss"]) and loss_err <= loss_tol and grad_errs[worst] <= grad_tol):
+            fail(f"phase 20: the 2-rank SP {label} disagrees with one process")
+        if not same:
+            fail(f"phase 20: the 2-rank SP {label}: the ranks hold different parameters")
+        if r0["counts"] != one_counts or r1["counts"] != one_counts:
+            fail(f"phase 20: the 2-rank SP {label}: launches {r0['counts']}, {r1['counts']} != one process's "
+                 f"{one_counts}")
+        runs.append((f"{label.replace(' step', '')} SP 1x2 (gloo)", r0["counts"]))
+        report[label] = {"loss_rel_err": loss_err, "worst_grad_rel_err": grad_errs[worst], "worst_at": worst,
+                         "launches": {k: v for k, v in r0["counts"].items() if v},
+                         "peak_bytes_per_rank": peaks, "one_process_peak_bytes": one_peak}
+    print(f"phase 20 SP of 2 ranks over gloo: {secs:.1f} s of command, {ranks[0]['seconds']:.1f} s in rank 0's steps "
+          "(gloo copies each halo, gathered map and sum through the host: not a cost of SP on NCCL)", flush=True)
+    return runs, report
+
+
+def phase_20(tmp):
+    """Phase 20: the spatial mesh axis (--shard_spatial) in a world of one
+    and on 2 gloo ranks."""
+    import torch.distributed as dist
+
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()), "RANK": "0", "WORLD_SIZE": "1",
+           "LOCAL_RANK": "0"}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        runs, report = sp_world_of_one(tmp)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        runs2, report["two ranks (gloo)"] = sp_two_ranks(tmp)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return runs + runs2, report
+
+
 def add_paths(*runs) -> dict:
     """Each kernel's launches summed over the named runs of its main path:
     {kernel: {path: launches}}, paths with no launch left out."""
@@ -3228,11 +3423,13 @@ def main() -> None:
             runs18, report18 = phase_18(tmp, base_dir, root)
         with Phase("19. the model mesh axis (TP) in a world of one and on 2 gloo ranks, the input backends"):
             runs19, report19 = phase_19(tmp)
+        with Phase("20. the spatial mesh axis (--shard_spatial) in a world of one and on 2 gloo ranks"):
+            runs20, report20 = phase_20(tmp)
 
     paths = add_paths(("serving", served["launches"]), ("training (a)", a32), ("training (b)", b32),
                       ("bf16 serving", served16["launches"]), ("bf16 training (a)", a16),
                       ("bf16 training (b)", b16), *opt_in, *evals, *cl_runs, *cond_runs, *runs17, *runs18,
-                      *runs19)
+                      *runs19, *runs20)
     bounded = lambda rows: "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations"
     gn_req = [(s, torch.float32, f) for s, f in gn_calls(8)]
     rb_req = [(s, torch.float32) for s in rb_shapes(8)]
@@ -3341,7 +3538,8 @@ def main() -> None:
         if kern["launches"] == 0:
             fail(f"{kern['name']} was never launched on the main path")
     print(json.dumps({"kernels": kernels, "phase_14": eval_report, "phase_15": cl_report, "phase_16": cond_report,
-                      "phase_17": report17, "phase_18": report18, "phase_19": report19}))
+                      "phase_17": report17, "phase_18": report18, "phase_19": report19,
+                      "phase_20": report20}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

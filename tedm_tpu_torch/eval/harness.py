@@ -131,10 +131,15 @@ def eval_parallel_setup(config: Config, modules: Iterable[torch.nn.Module] = ())
     batch the data ranks do not divide: every rank then predicts every
     row), as JAX's wiring is the identity on one device or an indivisible
     batch. With a process group it builds ``config``'s mesh, and under
-    ``--param_sharding tp`` shards ``modules`` over its model group."""
+    ``--param_sharding tp`` shards ``modules`` over its model group. A
+    ``--shard_spatial`` run's config on more than one rank, which JAX's
+    eval would shard spatially, is refused (ROADMAP item A.5h)."""
     if not mesh.active():
         return None
     mesh.check_config(config)
+    if config.shard_spatial and mesh.world() > 1:
+        raise NotImplementedError("--shard_spatial (spatial sharding) is not ported yet for the eval CLIs: "
+                                  "ROADMAP item A.5h")
     mesh.make_mesh(tuple(config.mesh_shape), tuple(config.mesh_axes))
     n = mesh.data_world()
     if config.batch_size % n:

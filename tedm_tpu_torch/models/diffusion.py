@@ -22,6 +22,10 @@ Under ``--mixed_precision`` the UNet returns bf16 while the images, the
 noise and the sampler's x stay fp32, as in the JAX package: the losses take
 the error in fp32, and a (B, 1, 1, 1) fp32 coefficient times a bf16 output
 promotes to fp32 in PyTorch as in JAX.
+
+Under spatial parallelism (``parallel/spatial.py``) the losses take this
+rank's rows of the images: their noise is drawn for the whole map and cut
+to them, and each image's mean over its pixels adds the ranks' sums.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
 import torch
 
 from tedm_tpu_torch.ops.schedules import DiffusionSchedule, extract, gather
+from tedm_tpu_torch.parallel import spatial
 
 # An apply function: (x_t, t) -> model output (epsilon or x_0 prediction).
 ApplyFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -404,17 +409,17 @@ def train_loss(
     if normalize:
         x_0 = normalize_to_neg_one_to_one(x_0)
     if noise is None:
-        noise = _randn(x_0.shape, x_0, generator)
+        noise = spatial.randn(x_0.shape, generator, x_0.device, x_0.dtype)
     out = apply_fn(q_sample(sched, x_0, t, noise), t)
     target = noise if objective == "pred_noise" else x_0
     err = (out.float() - target.float()).abs()
     p2 = gather(sched.p2_loss_weight, t)
     row_w = torch.ones(n, device=x_0.device) if valid is None else valid.float()
     denom = row_w.sum().clamp(min=1.0)
-    total = (err.reshape(n, -1).mean(dim=1) * p2 * row_w).sum() / denom
+    total = (spatial.mean(err.reshape(n, -1), 1) * p2 * row_w).sum() / denom
     if not aux_channel_losses:
         return total
-    per_ch = err.reshape(n, x_0.shape[1], -1).mean(dim=2) * p2[:, None]
+    per_ch = spatial.mean(err.reshape(n, x_0.shape[1], -1), 2) * p2[:, None]
     return total, (per_ch * row_w[:, None]).sum(dim=0) / denom
 
 
@@ -452,10 +457,10 @@ def val_loss(
     total = torch.zeros((), device=dev)
     for c in range(t_chunks.shape[0]):
         t_rep = t_chunks[c].repeat_interleave(n)
-        nz = noise[c] if noise is not None else _randn(x_rep.shape, x_rep, generator)
+        nz = noise[c] if noise is not None else spatial.randn(x_rep.shape, generator, dev, x_rep.dtype)
         out = apply_fn(q_sample(sched, x_rep, t_rep, nz), t_rep)
         tgt = nz if objective == "pred_noise" else x_rep
-        l = (out.float() - tgt.float()).abs().reshape(fold_batch * n, -1).mean(dim=1)
+        l = spatial.mean((out.float() - tgt.float()).abs().reshape(fold_batch * n, -1), 1)
         l = l * gather(sched.p2_loss_weight, t_rep)
         per_t = (l.reshape(fold_batch, n) * row_w).sum(dim=1) / row_denom
         total = total + (per_t * v_chunks[c]).sum()

@@ -15,6 +15,12 @@ Under tensor parallelism the heads' 1x1 convs take the ``tp`` rule as the
 UNet's do (``parallel/tensor_parallel.py``): layer 1 sums its stages over
 this rank's out-channels and gathers them before the bias, so BatchNorm's
 statistics are taken over the gathered channels.
+
+Under spatial parallelism (``parallel/spatial.py``) the features are this
+rank's rows of each stage: the noise is drawn for the whole map and cut to
+them, layer 1's nearest resize of a stage to this rank's rows of the
+output is local at the integer ratios of the stages, and BatchNorm's sums
+and the probe's pre-pass sums add over the data x spatial ranks.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from tedm_tpu_torch.models.diffusion import normalize_to_neg_one_to_one, q_sampl
 from tedm_tpu_torch.models.unet import Conv2d, Unet
 from tedm_tpu_torch.ops.resize import nearest_resize
 from tedm_tpu_torch.ops.schedules import DiffusionSchedule
-from tedm_tpu_torch.parallel import tensor_parallel
+from tedm_tpu_torch.parallel import spatial, tensor_parallel
 from tedm_tpu_torch.parallel.mesh import all_reduce_sum
 
 
@@ -70,7 +76,9 @@ def extract_features(
     (models/datasetDM_model.py:67-83): ``noise`` (B, C, H, W) given -> the same
     noise for every timestep; otherwise fresh noise per timestep drawn from
     ``generator``. ``noise`` of (S*B, C, H, W), step-major, gives each
-    timestep its own rows (the training draw of the JAX package).
+    timestep its own rows (the training draw of the JAX package). Under a
+    spatial plan x_0 and a given ``noise`` are this rank's rows, and drawn
+    noise is drawn for the whole map and cut to them.
     """
     b = x_0.shape[0]
     s = len(t_steps)
@@ -84,9 +92,7 @@ def extract_features(
     else:
         if generator is None:
             raise ValueError("need generator or noise")
-        noise_rep = torch.randn(
-            x_rep.shape, generator=generator, device=x_0.device, dtype=x_0.dtype
-        )
+        noise_rep = spatial.randn(x_rep.shape, generator, x_0.device, x_0.dtype)
     x_t = q_sample(sched, x_rep, t_rep, noise_rep)
     _, feats = unet(x_t, t_rep, extract_features=True)
     return feats
@@ -153,8 +159,9 @@ def flax_batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     variance to the *biased* batch variance (``nn.BatchNorm2d`` takes the
     unbiased one). Under data parallelism the batch is the global one, as in
     JAX's program over the sharded batch: the sums, sums of squares and
-    counts of every rank are added (``parallel.mesh.all_reduce_sum``, with
-    their gradient), and every rank moves its running statistics alike."""
+    counts of every rank, of every row shard under spatial parallelism, are
+    added (``parallel.mesh.all_reduce_sum``, with their gradient), and every
+    rank moves its running statistics alike."""
     if not bn.training:
         return bn(x)
     xf = x.float()
@@ -175,13 +182,14 @@ def stage_sum(module: nn.Module, weight: torch.Tensor, stages, channels: Sequenc
     """The sum over ``stages`` (each (B, c, h, w)) of the 1x1 conv with its
     columns of ``weight`` (off, c), nearest-resized to ``size``: a 1x1 conv
     over the upsampled concatenation, without building it. Under
-    ``module``'s TP plan over this rank's out-channels, then gathered."""
+    ``module``'s TP plan over this rank's out-channels, then gathered; under
+    a spatial plan resized to this rank's rows of ``size``."""
     plan = module.tp
     acc, off = None, 0
     for f_s, c in zip(stages, channels):
         if plan is not None:
             f_s = tensor_parallel.enter(f_s, plan)
-        y = nearest_resize(F.conv2d(f_s, weight[:, off:off + c]), size, size)
+        y = nearest_resize(F.conv2d(f_s, weight[:, off:off + c]), spatial.local_size(size), size)
         acc = y if acc is None else acc + y
         off += c
     return acc if plan is None else tensor_parallel.gather(acc, plan, 1)
@@ -247,7 +255,8 @@ def masked_feature_sums(
     space, in the [step x stage x channel] order: the pieces of the probe's
     standardisation pre-pass that leave out the loader's padding rows
     (port of ``masked_feature_sums``; reference pre-pass:
-    datasetDM_per_step.py:104-113)."""
+    datasetDM_per_step.py:104-113). Over this rank's rows under a spatial
+    plan: the caller adds them over the data x spatial ranks."""
     w = valid.float().reshape(-1, 1, 1, 1)
     sums, sqs, cnts = [], [], []
     for _, f_s in _step_stage(feats, n_steps):

@@ -53,6 +53,15 @@ out-channels with their entries of the replicated bias, gathered. The kernels th
 weights (the fused ResnetBlock, the fused PreNorm block) get them gathered
 whole, as GSPMD gathers a Pallas call's weights and runs it whole.
 
+Under spatial parallelism (``parallel/spatial.py``) the maps are this
+rank's rows of the whole ones while ``spatial.sharded`` holds a plan, read
+at call time as ``Conv2d`` reads its ``tp``: every convolution of more than
+one row exchanges a halo first, GroupNorm's statistics add over the row
+shards, and the attentions and the kernels that take a whole map (B.1,
+B.2, B.3, B.4, B.5) run on the gathered map and keep this rank's rows of
+their output; 1x1 convolutions, the upsample and ChanLayerNorm stay local.
+Without a plan (a spatial axis of one) every module runs as in one process.
+
 ``remat`` (``--remat``) checkpoints each ResnetBlock's and each attention
 block's call (``torch.utils.checkpoint``, non-reentrant) when autograd
 records, as JAX wraps those modules in ``nn.remat``
@@ -77,14 +86,15 @@ from tedm_tpu_torch.kernels.groupnorm import fused_group_norm_film_silu, group_n
 from tedm_tpu_torch.kernels.linear_attention import linear_attention, linear_attention_reference
 from tedm_tpu_torch.kernels.resblock import fused_resnet_block
 from tedm_tpu_torch.ops.resize import nearest_upsample_2x
-from tedm_tpu_torch.parallel import tensor_parallel
+from tedm_tpu_torch.parallel import spatial, tensor_parallel
 from tedm_tpu_torch.parallel.tensor_parallel import full_weight
 
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` in ``compute_dtype``: input, weight and bias are cast to
     it, and so is the output. The parameters stay fp32. Under a TP ``Plan``
-    (``tp``) column-parallel (module docstring)."""
+    (``tp``) column-parallel; under a spatial plan a kernel of more than one
+    row takes its halo (module docstring)."""
 
     compute_dtype = torch.float32
     tp: Optional[tensor_parallel.Plan] = None
@@ -93,6 +103,8 @@ class Conv2d(nn.Conv2d):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
         if self.tp is None:
+            if spatial.plan() is not None and self.kernel_size[0] > 1:
+                return spatial.conv2d(self, x.to(dt), self.weight.to(dt), bias)
             return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
         bias = tensor_parallel.local_rows(bias, self.tp)
         return tensor_parallel.column(self.tp, x, lambda v: self._conv_forward(v.to(dt), self.weight.to(dt), bias))
@@ -161,7 +173,9 @@ class TimeMLP(nn.Sequential):
 
 class GroupNormFilmSiLU(nn.Module):
     """GroupNorm(groups) with affine ``weight``/``bias`` -> optional FiLM -> SiLU;
-    through the GroupNorm kernel when ``fused``."""
+    through the GroupNorm kernel when ``fused``. Under a spatial plan the
+    plain path sums its statistics over the row shards, the kernel runs on
+    the gathered map."""
 
     def __init__(self, dim: int, groups: int = 8, fused: bool = False):
         super().__init__()
@@ -174,6 +188,12 @@ class GroupNormFilmSiLU(nn.Module):
         scale = shift = None
         if scale_shift is not None:
             scale, shift = scale_shift
+        if spatial.plan() is not None:
+            if self.fused:
+                return spatial.local_rows(fused_group_norm_film_silu(
+                    spatial.gather_h(x), self.weight, self.bias, scale, shift, groups=self.groups, eps=1e-5))
+            return group_norm_film_silu_reference(x, self.weight, self.bias, scale, shift, groups=self.groups,
+                                                  eps=1e-5, stats=spatial.group_stats(x, self.groups, 1e-5))
         fn = fused_group_norm_film_silu if self.fused else group_norm_film_silu_reference
         return fn(x, self.weight, self.bias, scale, shift, groups=self.groups, eps=1e-5)
 
@@ -225,10 +245,10 @@ class ResnetBlock(nn.Module):
             scale, shift = scale_shift if scale_shift is not None else (None, None)
             wres, bres = (res.weight, res.bias) if isinstance(res, Conv2d) else (None, None)
             wres = None if wres is None else full_weight(res)
-            return fused_resnet_block(
-                x.to(self.compute_dtype), full_weight(p1), p1.bias, n1.weight, n1.bias, scale, shift,
-                full_weight(p2), p2.bias, n2.weight, n2.bias, wres, bres, groups=self.groups,
-            )
+            return spatial.local_rows(fused_resnet_block(
+                spatial.gather_h(x.to(self.compute_dtype)), full_weight(p1), p1.bias, n1.weight, n1.bias, scale,
+                shift, full_weight(p2), p2.bias, n2.weight, n2.bias, wres, bres, groups=self.groups,
+            ))
         h = self.block1(x, scale_shift)
         h = self.block2(h)
         return h + self.res_conv(x)
@@ -238,7 +258,9 @@ class LinearAttention(nn.Module):
     """O(N) linear attention over spatial positions, q softmaxed over its
     head dim, k over positions (reference: models/unet_model.py:178-210),
     then to_out = Conv1x1 + ChanLayerNorm. ``use_pallas``: through the
-    kernel, else through its plain version on every device."""
+    kernel, else through its plain version on every device. Under a spatial
+    plan q, k and v are gathered (k's softmax and the context sum over all
+    of N) and this rank's rows of the output kept."""
 
     def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, use_pallas: bool = True):
         super().__init__()
@@ -249,16 +271,14 @@ class LinearAttention(nn.Module):
         self.to_out = nn.Sequential(Conv2d(hidden, dim, 1), ChanLayerNorm(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, _, h, w = x.shape
+        qkv = spatial.gather_h(self.to_qkv(x))
+        b, _, h, w = qkv.shape
         # 'b (h c) x y -> b h c (x y)': each chunk is a view that is
         # contiguous within a batch element, as the kernel takes it
-        q, k, v = (
-            t.reshape(b, self.heads, self.dim_head, h * w)
-            for t in self.to_qkv(x).chunk(3, dim=1)
-        )
+        q, k, v = (t.reshape(b, self.heads, self.dim_head, h * w) for t in qkv.chunk(3, dim=1))
         attend = linear_attention if self.use_pallas else linear_attention_reference
         out = attend(q, k, v, self.dim_head ** -0.5)
-        return self.to_out(out.reshape(b, -1, h, w).to(x.dtype))
+        return self.to_out(spatial.local_rows(out.reshape(b, -1, h, w)).to(x.dtype))
 
 
 class Attention(nn.Module):
@@ -266,7 +286,8 @@ class Attention(nn.Module):
     (reference: models/unet_model.py:213-241). q and k are l2-normalised over
     the SPATIAL axis, the last axis of the (B, heads, d, N) layout
     (tedm_tpu/models/unet.py:430-435). fp32 math; with ``flash`` through the
-    flash kernel on the qkv conv's chunks (output in their dtype)."""
+    flash kernel on the qkv conv's chunks (output in their dtype). Under a
+    spatial plan on the gathered q, k and v, this rank's rows kept."""
 
     def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, scale: float = 16.0, flash: bool = False):
         super().__init__()
@@ -277,9 +298,10 @@ class Attention(nn.Module):
         self.to_out = Conv2d(hidden, dim, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, _, h, w = x.shape
+        qkv = spatial.gather_h(self.to_qkv(x))
+        b, _, h, w = qkv.shape
         # 'b (h c) x y -> b h c (x y)': views, contiguous within a batch element
-        q, k, v = (t.reshape(b, self.heads, self.dim_head, h * w) for t in self.to_qkv(x).chunk(3, dim=1))
+        q, k, v = (t.reshape(b, self.heads, self.dim_head, h * w) for t in qkv.chunk(3, dim=1))
         if self.flash:
             out = flash_cosine_attention(q, k, v, self.scale)
         else:
@@ -287,7 +309,7 @@ class Attention(nn.Module):
             k = F.normalize(k.float(), dim=-1, eps=1e-12)
             attn = (torch.einsum("bhdi,bhdj->bhij", q, k) * self.scale).softmax(dim=-1)
             out = torch.einsum("bhij,bhdj->bhdi", attn, v.float())
-        return self.to_out(out.reshape(b, -1, h, w).to(x.dtype))
+        return self.to_out(spatial.local_rows(out.reshape(b, -1, h, w)).to(x.dtype))
 
 
 class PreNorm(nn.Module):
@@ -306,7 +328,8 @@ class PreNormAttn(nn.Module):
 
     With a LinearAttention in bf16 the whole block is one call of the fused
     block on x, the (B, C, H*W) view (tedm_tpu/models/unet.py:460-475), with
-    the same parameters, unless the attention's ``use_pallas`` is off."""
+    the same parameters, unless the attention's ``use_pallas`` is off; under
+    a spatial plan on the gathered x, this rank's rows of the output kept."""
 
     compute_dtype = torch.float32
 
@@ -317,13 +340,14 @@ class PreNormAttn(nn.Module):
     def forward(self, x):
         attn = self.fn.fn
         if isinstance(attn, LinearAttention) and attn.use_pallas and self.compute_dtype == torch.bfloat16:
-            b, c, h, w = x.shape
+            xg = spatial.gather_h(x)
+            b, c, h, w = xg.shape
             to_out, out_norm = attn.to_out
             y = prenorm_linear_attention(
-                x.reshape(b, c, h * w), self.fn.norm.g, full_weight(attn.to_qkv),
+                xg.reshape(b, c, h * w), self.fn.norm.g, full_weight(attn.to_qkv),
                 full_weight(to_out), to_out.bias, out_norm.g,
             )
-            return y.reshape(b, c, h, w)
+            return spatial.local_rows(y.reshape(b, c, h, w))
         return self.fn(x) + x
 
 

@@ -4,35 +4,45 @@ logits (port of ``tedm_tpu/ops/metrics.py``).
 Semantics match the reference (trainers/train_baseline.py:146-161): boolean
 masks reduced per image and channel, float division so that an empty
 denominator gives NaN, aggregated with nanmean (:140-142). Masks are NCHW,
-(B, C, H, W), in the port.
+(B, C, H, W), in the port. ``total`` maps each (B, C) count over this
+tensor's pixels to the count over the whole image: the identity, or under
+spatial parallelism the sum over the row shards (``parallel.spatial.spatial_sum``).
 """
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
-
-def _sum_hw(x: torch.Tensor) -> torch.Tensor:
-    """(B, C, H, W) -> (B, C) spatial sum in fp32."""
-    return x.float().sum(dim=(2, 3))
+Total = Callable[[torch.Tensor], torch.Tensor]
 
 
-def dice(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def _sum_hw(x: torch.Tensor, total: Total) -> torch.Tensor:
+    """(B, C, H, W) -> (B, C) spatial sum in fp32, over the whole image."""
+    return total(x.float().sum(dim=(2, 3)))
+
+
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def dice(pred: torch.Tensor, target: torch.Tensor, total: Total = _whole) -> torch.Tensor:
     """2|A∩B| / (|A|+|B|) per image and channel; NaN if both are empty."""
     p, t = pred.bool(), target.bool()
-    return 2.0 * _sum_hw(p & t) / (_sum_hw(p) + _sum_hw(t))
+    return 2.0 * _sum_hw(p & t, total) / (_sum_hw(p, total) + _sum_hw(t, total))
 
 
-def precision(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def precision(pred: torch.Tensor, target: torch.Tensor, total: Total = _whole) -> torch.Tensor:
     p, t = pred.bool(), target.bool()
-    tp = _sum_hw(t & p)
-    return tp / (tp + _sum_hw(~t & p))
+    tp = _sum_hw(t & p, total)
+    return tp / (tp + _sum_hw(~t & p, total))
 
 
-def recall(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def recall(pred: torch.Tensor, target: torch.Tensor, total: Total = _whole) -> torch.Tensor:
     p, t = pred.bool(), target.bool()
-    tp = _sum_hw(t & p)
-    return tp / (tp + _sum_hw(t & ~p))
+    tp = _sum_hw(t & p, total)
+    return tp / (tp + _sum_hw(t & ~p, total))
 
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

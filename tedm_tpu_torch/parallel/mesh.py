@@ -1,5 +1,5 @@
-"""Data and tensor parallelism over ``torch.distributed`` (port of the
-``data`` and ``model`` axes of ``tedm_tpu/parallel/mesh.py``).
+"""Data, tensor and spatial parallelism over ``torch.distributed`` (port of
+the ``data``, ``model`` and ``spatial`` axes of ``tedm_tpu/parallel/mesh.py``).
 
 JAX runs one program over the global batch: GSPMD shards the batch over the
 mesh's ``data`` axis and inserts the reductions. torch runs one process per
@@ -36,6 +36,19 @@ device, so here a rank plays the part of one JAX host with one device:
   (``tensor_parallel``) and wraps the module in DDP over the data group;
   under ``replicated`` or ``fsdp`` the model ranks are plain replicas, as
   in JAX.
+* A mesh with a ``spatial`` axis (``--mesh_shape D S --mesh_axes data
+  spatial --shard_spatial``) places rank ``r`` at ``divmod(r, S)`` and
+  builds the spatial group (the ranks of one ``data`` coordinate) and the
+  pixel group (the data x spatial ranks, which hold distinct pixels) once.
+  The ranks of a spatial group read the same rows and draw alike, as a
+  model group's do; under ``--shard_spatial`` each holds its rows of every
+  map (``parallel/spatial.py``). Per-row values (the valid counts, the
+  per-image losses) are the same on the ranks of a spatial group and reduce
+  over the data group; sums over pixels (BatchNorm's statistics,
+  ``all_reduce_sum``; PDDM's feature moments, ``reduced_pixels``) over the
+  pixel group, and DDP averages over it. Each rank still back-propagates
+  the data axis's size times its share of the loss: the spatial reductions
+  hand each rank S times its rows' part of the gradient (``spatial.py``).
 
 Without a process group (one process, no ``--multihost``) every function
 here is the identity, and the trainers run exactly as on one device.
@@ -54,7 +67,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from tedm_tpu_torch.parallel import tensor_parallel
+from tedm_tpu_torch.parallel import spatial, tensor_parallel
 
 # a collective that waits longer than this fails instead of hanging: a rank
 # that skipped a collective, or died, ends the run
@@ -88,6 +101,10 @@ class _Axes(NamedTuple):
     data_rank: int
     model_size: int
     model_rank: int
+    spatial: Any = None        # the spatial group (None: no spatial axis)
+    spatial_size: int = 1
+    spatial_rank: int = 0
+    pixels: Any = None         # the data x spatial group (None: the data group)
 
 
 _axes: Optional[_Axes] = None  # the mesh's groups; None: one data axis over the default group
@@ -120,6 +137,29 @@ def model_world() -> int:
     return 1 if a is None else a.model_size
 
 
+def spatial_world() -> int:
+    a = _current()
+    return 1 if a is None else a.spatial_size
+
+
+def spatial_rank() -> int:
+    a = _current()
+    return 0 if a is None else a.spatial_rank
+
+
+def spatial_plan() -> Optional[spatial.Plan]:
+    """This rank's place on the ``spatial`` axis, None without one."""
+    a = _current()
+    return None if a is None or a.spatial is None else spatial.Plan(a.spatial, a.spatial_size, a.spatial_rank)
+
+
+def pixel_group():
+    """The group of the ranks that hold distinct pixels, data x spatial
+    (the data group without a spatial axis)."""
+    a = _current()
+    return None if a is None else (a.pixels if a.spatial is not None else a.data)
+
+
 def model_plan() -> Optional[tensor_parallel.Plan]:
     """This rank's place on the ``model`` axis, None without one."""
     a = _current()
@@ -131,7 +171,7 @@ def rank_seed(seed: int) -> int:
     and noise, feature noise): ``seed`` on data rank 0, so that a world of
     one draws what one process draws, and another stream on every other
     data rank, as JAX draws every row of the global batch apart; the ranks
-    of one model group draw alike."""
+    of one model or spatial group draw alike."""
     return seed + 1_000_003 * data_rank()
 
 
@@ -171,7 +211,7 @@ def init_multihost(device: Union[str, torch.device] = "cuda") -> torch.device:
 
 
 class Mesh(NamedTuple):
-    """The port's mesh: its shape and axis names (``data``, ``model``)."""
+    """The port's mesh: its shape and axis names (``data``, ``model``, ``spatial``)."""
 
     shape: tuple
     axis_names: tuple
@@ -183,7 +223,8 @@ def make_mesh(mesh_shape: Sequence[int] = (), mesh_axes: Sequence[str] = ("data"
     an empty shape takes every rank on ``data``; a shape that needs more
     devices than there are ranks, or (with more than one rank) fewer, is an
     error in JAX's words. Over the ranks of a process group (``n_devices``
-    None) it also builds the mesh's data and model groups, once per mesh."""
+    None) it also builds the mesh's data, model and spatial groups, once
+    per mesh."""
     n_dev = world() if n_devices is None else n_devices
     if not mesh_shape:
         m = Mesh((n_dev,), ("data",))
@@ -204,33 +245,38 @@ def make_mesh(mesh_shape: Sequence[int] = (), mesh_axes: Sequence[str] = ("data"
     return m
 
 
-def _groups_along(ranks: np.ndarray, axis: Optional[int]) -> List[List[int]]:
-    """The rank lists of the lines of ``ranks`` along ``axis`` (each rank
-    alone when the mesh has no such axis)."""
-    if axis is None:
+def _groups_along(ranks: np.ndarray, axes: Sequence[Optional[int]]) -> List[List[int]]:
+    """The rank lists of the lines of ``ranks`` along ``axes`` together (each
+    rank alone when the mesh has none of them)."""
+    axes = [a for a in axes if a is not None]
+    if not axes:
         return [[int(r)] for r in ranks.reshape(-1)]
-    return np.moveaxis(ranks, axis, -1).reshape(-1, ranks.shape[axis]).tolist()
+    n = math.prod(ranks.shape[a] for a in axes)
+    return np.moveaxis(ranks, axes, list(range(-len(axes), 0))).reshape(-1, n).tolist()
 
 
 def _use(m: Mesh) -> None:
-    """Build ``m``'s data and model groups over the default group, unless
-    they are built; every rank calls it alike (``new_group`` is a
-    collective). Without a model axis the data group is the default one."""
+    """Build ``m``'s data, model and spatial groups (and the data x spatial
+    one) over the default group, unless they are built; every rank calls it
+    alike (``new_group`` is a collective). Without a model or spatial axis
+    the data group is the default one."""
     global _axes
     key = (m.shape, m.axis_names, dist.group.WORLD)
     if _axes is not None and _axes.key == key:
         return
-    if "model" not in m.axis_names:
+    if "model" not in m.axis_names and "spatial" not in m.axis_names:
         _axes = _Axes(key, None, None, world(), rank(), 1, 0)
         return
     ranks = np.arange(world()).reshape(m.shape)
-    di = m.axis_names.index("data") if "data" in m.axis_names else None
-    mi = m.axis_names.index("model")
+    di, mi, si = (m.axis_names.index(a) if a in m.axis_names else None for a in ("data", "model", "spatial"))
     where = np.argwhere(ranks == rank())[0]
-    data, _ = dist.new_subgroups_by_enumeration(_groups_along(ranks, di), timeout=TIMEOUT)
-    model, _ = dist.new_subgroups_by_enumeration(_groups_along(ranks, mi), timeout=TIMEOUT)
-    _axes = _Axes(key, data, model, 1 if di is None else m.shape[di], 0 if di is None else int(where[di]),
-                  m.shape[mi], int(where[mi]))
+    group = lambda *axes: dist.new_subgroups_by_enumeration(_groups_along(ranks, axes), timeout=TIMEOUT)[0]
+    size = lambda i: 1 if i is None else m.shape[i]
+    at = lambda i: 0 if i is None else int(where[i])
+    data = group(di)
+    model = None if mi is None else group(mi)
+    spatial_group, pixels = (None, None) if si is None else (group(si), group(di, si))
+    _axes = _Axes(key, data, model, size(di), at(di), size(mi), at(mi), spatial_group, size(si), at(si), pixels)
 
 
 def param_shardings(params: Dict[str, torch.Tensor], n: int,
@@ -256,13 +302,13 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         y = x.clone()
-        dist.all_reduce(y, group=data_group())
+        dist.all_reduce(y, group=pixel_group())
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        dist.all_reduce(g, group=data_group())
+        dist.all_reduce(g, group=pixel_group())
         return g
 
 
@@ -281,9 +327,10 @@ class _GatherRows(torch.autograd.Function):
 
 
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over the data ranks, on every rank; autograd gives
-    each rank the sum of the ranks' gradients of it."""
-    return _AllReduceSum.apply(x) if data_world() > 1 else x
+    """The sum of ``x``, a sum over pixels, over the data x spatial ranks,
+    on every rank; autograd gives each rank the sum of the ranks' gradients
+    of it."""
+    return _AllReduceSum.apply(x) if data_world() * spatial_world() > 1 else x
 
 
 def gather_rows(x: torch.Tensor) -> torch.Tensor:
@@ -299,6 +346,16 @@ def reduced(x: torch.Tensor) -> torch.Tensor:
         return x
     x = x.detach().clone()
     dist.all_reduce(x, group=data_group())
+    return x
+
+
+def reduced_pixels(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x``, a sum over pixels, over the data x spatial ranks
+    (no gradient)."""
+    if data_world() * spatial_world() == 1:
+        return x
+    x = x.detach().clone()
+    dist.all_reduce(x, group=pixel_group())
     return x
 
 
@@ -323,8 +380,8 @@ def host_sum(values: Sequence[float]) -> List[float]:
 
 def rows_seen(n: int) -> float:
     """The rows that the data ranks read, from each rank's ``n`` (the ranks
-    of a model group read the same rows)."""
-    return host_sum([n])[0] / model_world()
+    of a model or spatial group read the same rows)."""
+    return host_sum([n])[0] / (model_world() * spatial_world())
 
 
 def host_any(flag: bool) -> bool:
@@ -370,12 +427,15 @@ class DataParallel:
     micro-steps without their gradient reduction (``no_sync``), reduce the
     replicated parameters' gradients under FSDP (``finish_grads``), and read
     and restore the full state (``state_dict``, ``optimizer_state``,
-    ``load_optimizer_state``). Identity without a process group."""
+    ``load_optimizer_state``), and under ``shard_spatial`` give the spatial
+    plan of a batch (``rows_plan``). Identity without a process group."""
 
-    def __init__(self, mode: str = "replicated", fsdp_min_size: int = 2 ** 14, tp_min_width: int = 256):
+    def __init__(self, mode: str = "replicated", fsdp_min_size: int = 2 ** 14, tp_min_width: int = 256,
+                 shard_spatial: bool = False):
         self.world = data_world()
         self.mode = mode if active() else "none"
         self.plan = model_plan()
+        self.spatial = spatial_plan() if shard_spatial else None
         if self.mode == "tp" and self.plan is None:
             raise ValueError(TP_NEEDS_MODEL)
         self.fsdp_min_size = fsdp_min_size
@@ -383,8 +443,16 @@ class DataParallel:
         self._replicated: List[nn.Parameter] = []
         self._order: List[nn.Parameter] = []  # the optimizer's parameters, in the caller's order
 
+    def rows_plan(self, height: int, depth: int) -> Optional[spatial.Plan]:
+        """The spatial plan of a batch of maps of ``height`` rows through a
+        UNet of ``depth`` downsamples (``spatial.plan_for``): None without
+        ``--shard_spatial``, a spatial axis of one, or a height the axis does
+        not divide."""
+        return spatial.plan_for(self.spatial, height, depth)
+
     def wrap(self, module: nn.Module, find_unused: bool = False) -> nn.Module:
-        """The module to call: ``module`` under DDP over the data group (its
+        """The module to call: ``module`` under DDP over the data x spatial
+        group (the data group without a spatial axis; its
         state stays ``module``'s, without a ``module.`` prefix), under TP
         first sharded over the model group, or ``module`` sharded in place
         by FSDP2, or ``module`` itself without a group. Only the parameters
@@ -400,7 +468,7 @@ class DataParallel:
         dev = next(module.parameters()).device
         return nn.parallel.DistributedDataParallel(
             module, device_ids=[dev] if dev.type == "cuda" else None, broadcast_buffers=False,
-            find_unused_parameters=find_unused, process_group=data_group(),
+            find_unused_parameters=find_unused, process_group=pixel_group(),
         )
 
     def place(self, module: nn.Module) -> None:
@@ -558,26 +626,51 @@ TP_NEEDS_MODEL = ("--param_sharding tp needs a 'model' mesh axis, e.g. "
                   "--mesh_shape 4 2 --mesh_axes data model")
 
 
+SP_NEEDS_AXIS = ("--shard_spatial needs a 'spatial' mesh axis, e.g. "
+                 "--mesh_shape 2 4 --mesh_axes data spatial")
+SP_COMPOSES = ("--shard_spatial composes only with replicated params and a "
+               "single spatial axis (got param_sharding={mode!r}, mesh axes "
+               "{axes}): XLA's SPMD partitioner miscompiles the "
+               "conv backward when partitioning spans two non-batch factors "
+               "(measured grad error up to 2.4 rel-l2 while the forward "
+               "matches — silent wrong training; docs/DESIGN.md). Use "
+               "data x spatial with replicated params, or TP/FSDP without SP.")
+
+
 def check_config(config) -> None:
-    """JAX's refusal of ``tp`` without a ``model`` axis
-    (tedm_tpu/parallel/mesh.py:181-185), in its words."""
+    """JAX's refusals, in its words: ``tp`` without a ``model`` axis
+    (tedm_tpu/parallel/mesh.py:181-185); and, where JAX's wiring runs past
+    its one-device return (mesh.py:177-179: more than one rank here),
+    ``--shard_spatial`` without a ``spatial`` axis, or with ``tp``,
+    ``fsdp`` or a second spatial axis (mesh.py:186-212). The mesh's axis
+    names are JAX's ``make_mesh``'s: the first one alone under an empty
+    shape."""
     if config.param_sharding == "tp" and "model" not in tuple(config.mesh_axes):
         raise ValueError(TP_NEEDS_MODEL)
+    if not config.shard_spatial or world() <= 1:
+        return
+    axes = tuple(config.mesh_axes) if config.mesh_shape else (tuple(config.mesh_axes[:1]) or ("data",))
+    if "spatial" not in axes:
+        raise ValueError(SP_NEEDS_AXIS)
+    if config.param_sharding in ("tp", "fsdp") or "spatial2" in axes:
+        raise ValueError(SP_COMPOSES.format(mode=config.param_sharding, axes=axes))
 
 
 def data_parallel_setup(config, device: Union[str, torch.device] = "cuda") -> DataParallel:
     """The trainers' wiring (the port of JAX's ``data_parallel_setup``): the
     mesh checks of ``make_mesh`` (and its groups) and a ``DataParallel`` for
-    ``config.param_sharding``; identity without a process group."""
+    ``config.param_sharding`` (and the spatial plan under
+    ``--shard_spatial``); identity without a process group."""
     check_config(config)
     make_mesh(tuple(config.mesh_shape), tuple(config.mesh_axes))
-    return DataParallel(config.param_sharding, config.fsdp_min_size, config.tp_min_width)
+    return DataParallel(config.param_sharding, config.fsdp_min_size, config.tp_min_width, config.shard_spatial)
 
 
 def loader_shard() -> Dict[str, int]:
     """The train loader's shard of this rank (``shard_index``,
     ``shard_count``): its data rank and the data axis's size, as JAX passes
-    its process index and count; the ranks of a model group read alike."""
+    its process index and count; the ranks of a model or spatial group read
+    alike."""
     return {"shard_index": data_rank(), "shard_count": data_world()}
 
 

@@ -48,7 +48,12 @@ a head's ``batch_stats`` (where its backbone rides) through the rule
 (tedm_tpu/trainers/common.py:216-219); the ranks of one model group read
 the same rows and draw alike. The best-validation checkpoint, the early
 stop and a signal are decided on values reduced over the ranks; rank 0
-writes.
+writes. Under ``--shard_spatial`` (``parallel/spatial.py``) each step and
+each validation batch runs on this rank's rows of the images, masks and
+noise, the ranks of a spatial group reading the same rows and drawing
+alike; a per-image mean over pixels adds the ranks' sums
+(``masked_bce_per_image``, the metrics' counts) before the masked mean over
+the valid rows, the same on every rank of the group.
 """
 
 from __future__ import annotations
@@ -62,7 +67,7 @@ import torch
 
 from tedm_tpu_torch.config import Config
 from tedm_tpu_torch.ops import metrics as M
-from tedm_tpu_torch.parallel import mesh
+from tedm_tpu_torch.parallel import mesh, spatial
 from tedm_tpu_torch.utils.checkpoint import checkpoint_exists, load_checkpoint, save_checkpoint
 from tedm_tpu_torch.utils.interrupt import graceful_shutdown
 from tedm_tpu_torch.utils.logging import MetricsLogger
@@ -122,9 +127,11 @@ def masked_bce_per_image(
     logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-image BCE (mean over pixels and channels) and its mean over the
-    valid rows: reduce('b c h w -> b c', 'mean').mean() without padding."""
+    valid rows: reduce('b c h w -> b c', 'mean').mean() without padding.
+    Under a spatial plan the mean over the whole image from this rank's
+    rows (``spatial.mean``)."""
     per_px = M.bce_with_logits(logits.float(), labels.float())
-    per_img = per_px.reshape(per_px.shape[0], -1).mean(dim=1)
+    per_img = spatial.mean(per_px.reshape(per_px.shape[0], -1), 1)
     return per_img, (per_img * valid).sum() / valid.sum().clamp(min=1.0)
 
 
@@ -133,6 +140,15 @@ def _fold(task, y: torch.Tensor, valid: torch.Tensor) -> Tuple[torch.Tensor, tor
     if task.fold > 1:
         return y.repeat(task.fold, 1, 1, 1), valid.repeat(task.fold)
     return y, valid
+
+
+def rows_plan(dp: Optional[mesh.DataParallel], task, height: int) -> Optional[spatial.Plan]:
+    """The spatial plan of a batch of ``height`` rows through ``task``'s UNet
+    (``DataParallel.rows_plan``), None without ``--shard_spatial``."""
+    if dp is None or dp.spatial is None:
+        return None
+    unet = getattr(task.unet, "module", task.unet)  # the baseline's is the DDP-wrapped one
+    return dp.rows_plan(height, len(unet.downs) - 1)
 
 
 def make_train_step(task, optimizer: torch.optim.Optimizer, frozen: Sequence[torch.nn.Parameter] = (),
@@ -147,17 +163,21 @@ def make_train_step(task, optimizer: torch.optim.Optimizer, frozen: Sequence[tor
     which DDP's mean over the ranks turns into the global gradient (in one
     process: the masked mean itself; ``world`` is the data axis's size), and
     both values come back global;
-    ``dp`` reduces the gradients FSDP leaves to it."""
+    ``dp`` reduces the gradients FSDP leaves to it and, under
+    ``--shard_spatial``, gives the plan under which the step runs on this
+    rank's rows of ``x``, ``y`` and ``noise`` (whole maps)."""
     frozen = list(frozen)
 
     def step(x, y, valid, generator=None, noise=None, freeze=False):
         task.trained.train()
-        logits = task.apply(x, generator=generator, noise=noise)
-        y_f, valid_f = _fold(task, y, valid)
-        per_img, _ = masked_bce_per_image(logits, y_f, valid_f)
-        loss = mesh.global_share(per_img, valid_f)
-        optimizer.zero_grad(set_to_none=True)
-        (loss * mesh.data_world()).backward()
+        with spatial.sharded(rows_plan(dp, task, x.shape[2])):
+            x, y = spatial.local_rows(x), spatial.local_rows(y)
+            logits = task.apply(x, generator=generator, noise=None if noise is None else spatial.local_rows(noise))
+            y_f, valid_f = _fold(task, y, valid)
+            per_img, _ = masked_bce_per_image(logits, y_f, valid_f)
+            loss = mesh.global_share(per_img, valid_f)
+            optimizer.zero_grad(set_to_none=True)
+            (loss * mesh.data_world()).backward()
         if dp is not None:
             dp.finish_grads()
         if freeze and frozen:
@@ -178,29 +198,34 @@ def make_train_step(task, optimizer: torch.optim.Optimizer, frozen: Sequence[tor
     return step
 
 
-def make_eval_step(task):
+def make_eval_step(task, dp: Optional[mesh.DataParallel] = None):
     """``step(x, y, valid, generator) -> (loss, dice, precision, recall)``
     of one batch in eval mode; the metrics are (fold*B, C) with NaN on
-    padding rows."""
+    padding rows. Under ``--shard_spatial`` on this rank's rows, the
+    metrics' counts added over the row shards."""
 
     @torch.no_grad()
     def step(x, y, valid, generator):
         task.trained.eval()
-        logits = task.apply(x, generator=generator)
-        y, valid = _fold(task, y, valid)
-        _, loss = masked_bce_per_image(logits, y, valid)
-        y_hat = torch.sigmoid(logits.float()) > 0.5
-        vmask = torch.where(valid > 0, 1.0, float("nan"))[:, None]
-        return loss, M.dice(y_hat, y) * vmask, M.precision(y_hat, y) * vmask, M.recall(y_hat, y) * vmask
+        with spatial.sharded(rows_plan(dp, task, x.shape[2])):
+            logits = task.apply(spatial.local_rows(x), generator=generator)
+            y, valid = _fold(task, spatial.local_rows(y), valid)
+            _, loss = masked_bce_per_image(logits, y, valid)
+            y_hat = torch.sigmoid(logits.float()) > 0.5
+            vmask = torch.where(valid > 0, 1.0, float("nan"))[:, None]
+            total = spatial.spatial_sum
+            return (loss, M.dice(y_hat, y, total) * vmask, M.precision(y_hat, y, total) * vmask,
+                    M.recall(y_hat, y, total) * vmask)
 
     return step
 
 
-def validate(config: Config, task, loader, generator: torch.Generator) -> Dict[str, float]:
+def validate(config: Config, task, loader, generator: torch.Generator,
+             dp: Optional[mesh.DataParallel] = None) -> Dict[str, float]:
     """Reference validate (trainers/train_baseline.py:99-144): the loss
     weighted by valid rows, the metrics by nanmean over images."""
     dev = next(task.trained.parameters()).device
-    eval_step = make_eval_step(task)
+    eval_step = make_eval_step(task, dp)
     losses, weights, dices, precs, recs = [], [], [], [], []
     for i, batch in enumerate(loader):
         loss, d, p, r = eval_step(
@@ -304,7 +329,7 @@ def train_segmentation(
                 t0, imgs_seen = time.time(), 0
 
             if step % config.val_freq == 0 or config.debug:
-                val = validate(config, task, loaders["val"], generator)
+                val = validate(config, task, loaders["val"], generator, dp)
                 logger.log(val, step)
                 if val["val/loss"] < best_val_loss and not config.debug:
                     best_val_loss = val["val/loss"]

@@ -25,7 +25,11 @@ its share, weighted by its valid rows over the global count, microbatch by
 microbatch under ``--grad_accum`` with the gradient reduction on the last
 one only. The logged loss is the global one; the best-validation
 checkpoint and a signal are decided on values reduced over the ranks, and
-rank 0 writes.
+rank 0 writes. Under ``--shard_spatial`` (``parallel/spatial.py``) a step
+and a validation batch run on this rank's rows of the images, the
+condition and the noise (drawn whole, the ranks of a spatial group drawing
+alike), each image's loss adding the ranks' sums over pixels; the samples
+of the validation grid are drawn whole on every rank.
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ from tedm_tpu_torch.models.diffusion import (
 )
 from tedm_tpu_torch.models.unet import Unet
 from tedm_tpu_torch.ops.schedules import DiffusionSchedule, make_schedule
-from tedm_tpu_torch.parallel import mesh
+from tedm_tpu_torch.parallel import mesh, spatial
 from tedm_tpu_torch.trainers.common import compute_dtype, init_seeded, make_optimizer, to_nchw, unet_kernels
 from tedm_tpu_torch.utils.checkpoint import checkpoint_exists, load_checkpoint, save_checkpoint
 from tedm_tpu_torch.utils.device import resolve_device
@@ -108,6 +112,14 @@ def make_steps(
 ) -> Steps:
     """``unet`` is the module to call (a DDP or FSDP one under ``dp``)."""
     conditional = config.experiment in CONDITIONAL
+    depth = len(config.dim_mults) - 1
+
+    def plan_of(x):
+        return None if dp is None else dp.rows_plan(x.shape[2], depth)
+
+    def cut(x, cond):
+        """This rank's rows of ``x`` and of a conditional run's condition."""
+        return spatial.local_rows(x), spatial.local_rows(cond) if conditional else cond
     x_ch, _ = mode_channels(config)
     # joint x has (img, seg) channels: the loss is also split per channel,
     # the reference's intended train_loss/img and train_loss/seg
@@ -135,6 +147,11 @@ def make_steps(
         return out if split_channels else (out, torch.zeros(1, device=x.device))
 
     def train_step(x, cond, valid, generator=None, t=None, noise=None):
+        with spatial.sharded(plan_of(x)):
+            x, cond = cut(x, cond)
+            return sharded_step(x, cond, valid, generator, t, None if noise is None else spatial.local_rows(noise))
+
+    def sharded_step(x, cond, valid, generator, t, noise):
         optimizer.zero_grad(set_to_none=True)
         valid = valid.float()
         n = mesh.data_world()
@@ -173,10 +190,12 @@ def make_steps(
 
     @torch.no_grad()
     def eval_step(model, x, cond, valid, generator):
-        return val_loss(
-            apply_fn_of(model, cond), sched, x, config.val_steps, generator=generator,
-            objective=config.objective, normalize=config.normalize, valid=valid,
-        )
+        with spatial.sharded(plan_of(x)):
+            x, cond = cut(x, cond)
+            return val_loss(
+                apply_fn_of(model, cond), sched, x, config.val_steps, generator=generator,
+                objective=config.objective, normalize=config.normalize, valid=valid,
+            )
 
     @torch.no_grad()
     def sample_grid(model, cond, generator, n):

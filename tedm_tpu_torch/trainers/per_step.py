@@ -10,7 +10,8 @@ moments over (batch, space) of the train set, padding rows left out, from a
 pre-pass over the train loader whose noise comes from a generator seeded
 from ``config.seed`` (each rank's own under data parallelism, over its
 shard, the sums then added over the ranks: the moments of the whole set,
-as one process takes them). (The reference computes per-(channel, pixel) moments
+as one process takes them; under ``--shard_spatial`` each rank of a spatial
+group over its rows, the sums added over the data x spatial ranks). (The reference computes per-(channel, pixel) moments
 and then applies the probe to the raw features, :30-31, :104-113; without
 the flag the port, as the JAX package, applies it to the raw features too.)
 """
@@ -24,7 +25,7 @@ import torch
 from tedm_tpu_torch.config import Config
 from tedm_tpu_torch.data.pipeline import build_dataloaders
 from tedm_tpu_torch.models.segmentation import LinearProbe, extract_features, masked_feature_sums
-from tedm_tpu_torch.parallel import mesh
+from tedm_tpu_torch.parallel import mesh, spatial
 from tedm_tpu_torch.trainers.common import init_seeded, to_nchw, train_segmentation
 from tedm_tpu_torch.trainers.datasetdm import SegTask, load_backbone
 from tedm_tpu_torch.utils.device import resolve_device
@@ -58,14 +59,17 @@ def build_task(
                    normalize=config.normalize and not config.extract_unnormalized)
     if config.standardize_features and compute_stats:
         generator = torch.Generator(device=dev).manual_seed(mesh.rank_seed(config.seed))
+        plan = mesh.spatial_plan() if config.shard_spatial else None
         acc = None
         with torch.no_grad():
             for batch in loaders["train"]:
-                feats = extract_features(unet, sched, to_nchw(batch["image"], dev), t_steps,
-                                         generator=generator, normalize=task.normalize)
-                sums = masked_feature_sums(feats, n_steps, torch.from_numpy(batch["valid"]).to(dev))
+                x = to_nchw(batch["image"], dev)
+                with spatial.sharded(spatial.plan_for(plan, x.shape[2], len(unet.downs) - 1)):
+                    feats = extract_features(unet, sched, spatial.local_rows(x), t_steps,
+                                             generator=generator, normalize=task.normalize)
+                    sums = masked_feature_sums(feats, n_steps, torch.from_numpy(batch["valid"]).to(dev))
                 acc = sums if acc is None else tuple(a + b for a, b in zip(acc, sums))
-            total, squares, count = (mesh.reduced(a) for a in acc)
+            total, squares, count = (mesh.reduced_pixels(a) for a in acc)
             mean = total / count
             probe.mean.copy_(mean)
             probe.std.copy_((squares / count - mean * mean).clamp(min=0.0).sqrt() + 1e-6)

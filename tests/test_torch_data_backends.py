@@ -188,7 +188,9 @@ def test_grain_backend_names_the_missing_package(tmp_path, monkeypatch):
         build_dataloaders("CXR14", None, SIZE, backend="grain")
 
 
-@pytest.mark.parametrize("argv", [["--shard_spatial"], ["--mesh_shape", "1", "1", "--mesh_axes", "data", "spatial"]])
+@pytest.mark.parametrize("argv", [["--shard_spatial", "--experiment", "global_cl"], ["--mesh_axes", "data", "spatial2"]])
 def test_spatial_sharding_is_not_ported(argv, tmp_path):
+    """What is left of spatial sharding to port: the contrastive arms under
+    --shard_spatial, and a mesh axis outside data, model and spatial."""
     kind, msg = port_error(["--synthetic_data", *argv], tmp_path)
     assert kind is NotImplementedError and "A.5h" in msg and "spatial" in msg

@@ -103,7 +103,8 @@ def test_entry_points_refuse_cpu_without_cuda(monkeypatch, tmp_path):
 
 def test_unported_experiment_names_its_roadmap_item(tmp_path, monkeypatch):
     """The contrastive finetunes are served as baseline UNets; what the port
-    still refuses (spatial sharding, the rest of ROADMAP A.5h) names its
+    still refuses (spatial sharding of the contrastive arms, a mesh axis
+    outside data, model and spatial: the rest of ROADMAP A.5h) names its
     item; ``--multihost`` without torchrun's environment and a
     ``--mesh_shape`` the ranks do not fill are errors in JAX's words."""
     for experiment in ("global_finetune", "glob_loc_finetune"):
@@ -113,8 +114,8 @@ def test_unported_experiment_names_its_roadmap_item(tmp_path, monkeypatch):
         build_eval_task(_config(tmp_path, "global_cl"), device="cpu")
     assert {item for _, _, item in NOT_PORTED} == {"A.5h"}
     for flag, _, item in NOT_PORTED:
-        value = {"--remat": [], "--multihost": [], "--shard_spatial": [], "--mesh_shape": ["2"],
-                 "--mesh_axes": ["data", "spatial"],
+        value = {"--remat": [], "--multihost": [], "--shard_spatial": ["--experiment", "global_cl"],
+                 "--mesh_shape": ["2"], "--mesh_axes": ["data", "spatial2"],
                  "--profile_dir": ["p"]}[flag]
         with pytest.raises(NotImplementedError, match=f"{flag} .*ROADMAP item {item}"):
             train_main(["--synthetic_data", "--log_dir", str(tmp_path / "r"), flag, *value], device="cpu")
