@@ -80,7 +80,7 @@ Phases, each of which exits non-zero on failure:
      ``--use_pallas_groupnorm``;
  14. the eval harness on a corpus of files: the hard synthetic corpus
      written at 128x128 by scripts/port/export_corpus.py (JSRT 197/25/25,
-     NIH 100, Montgomery 100, CXR14 64); from its JSRT files, through
+     NIH 25, Montgomery 25, CXR14 64); from its JSRT files, through
      train.main on phase 5's backbone, a TEDM head, a PDDM probe at
      timestep 1 and the supervised baseline at n = 1 (fp32), and the
      baseline at n = 197 (batch 16) in fp32 and bf16, each with and without
@@ -90,8 +90,13 @@ Phases, each of which exits non-zero on failure:
      gates); testing_shared_weights on the TEDM head and run_tests on the
      baseline and PDDM heads over JSRT_val, JSRT_test, NIH and Montgomery
      (seconds, images/s, launches); each npz read back and its Dice
-     recomputed on the CPU; the first JSRT_val batch's probabilities of
-     each head, with noise given, against the CPU plain path;
+     recomputed on the CPU; the probabilities of each head on the first
+     JSRT_val batch (16 images), with noise given, against the plain path
+     on the card (the config under ``--no_pallas``: no kernel launch), and
+     on its first images whose rows fill 16 (TEDM's 8 timesteps: 2 images;
+     the baseline and PDDM: all 16) against the CPU plain path; then the
+     port's ``reporting.tables`` over the npz files,
+     its main-table rows (Dice x100 at n = 1) printed, each with a number;
  15. the contrastive arms through train.main: global_cl on synthetic CXR14
      (batch 16, 32 views, fp32; 4 linear-attention forward and 4 backward
      launches a step) and local_cl warm-started from it (6 forward, 2
@@ -105,10 +110,10 @@ Phases, each of which exits non-zero on failure:
      CL") request against the CPU plain path;
  16. a conditional backbone through train.main on the corpus's JSRT files
      (batch 16, one validation with its sample grid), run_tests on it with
-     --ddim_steps 10 over the four sets (5 trajectories a batch, 8
+     --ddim_steps 4 over the four sets (5 trajectories a batch, 8
      linear-attention launches a UNet call), and one DDIM and one
-     DPM-Solver++(2M) trajectory of one image on the card against the CPU
-     plain path from the same x_T;
+     DPM-Solver++(2M) trajectory of one image (4 steps) on the card against
+     the CPU plain path from the same x_T;
  17. the rest of serving and the training tooling: phase 4's weights served
      under ``--no_pallas`` in fp32 and bf16 (no B.1 or B.2 launch, within
      the path gates of the default path); Predictor's CUDA graphs for fp32
@@ -119,17 +124,18 @@ Phases, each of which exits non-zero on failure:
      (``serve/export.py``) in fp32 and bf16, and phase 12's bf16 resblock +
      flash one, each called twice in a fresh process (equal to Predictor's
      folded rows, one UNet call's launches, no weight laid out by the second
-     call); exported samplers (DDIM and the ancestral step on phase 5's
+     call); exported samplers (2-step DDIM and the ancestral step on phase 5's
      backbone, the ancestral step on phase 9's bf16 one, DPM++ on phase
-     16's) against the eager loops, with the same counts of launches and
-     layouts; ``--remat`` path (a) runs and one
+     16's, 2 steps) against the eager loops, with the same counts of launches and
+     layouts (every export made by one of three processes started at the
+     phase's start, beside the rest of it); ``--remat`` path (a) runs and one
      step against the step without it, in fp32 and with resblock + flash;
      a ``--profile_dir`` run whose trace holds B.1 and B.1b; the grid
      (``predict``) over phases 14-15's checkpoints, cold and warm;
  18. data parallel (``parallel/mesh.py``) in a world of one under NCCL, the
      card's one rank launched as torchrun would (the env set here, a free
      port): the backbone at batch 16 through train.main --multihost under
-     DDP and under --param_sharding fsdp, 10 steps each, in fp32 (B.1,
+     DDP and under --param_sharding fsdp, 5 steps each, in fp32 (B.1,
      B.1b), bf16 with resblock + flash (B.2, B.4, B.4b, B.5) and with
      groupnorm (B.3), with cuDNN's deterministic algorithms, each against
      the same run without a process group: the losses, and the parameters
@@ -143,7 +149,10 @@ Phases, each of which exits non-zero on failure:
      reported); DDP of 2 ranks on the one card over gloo (2 backbone steps
      at batch 8 a rank; NCCL refuses two ranks on one device), both ranks
      logging the same loss; run_tests --multihost over phase 14's baseline
-     against its npz files;
+     against its npz files. The 2 ranks of phases 18-20 are two processes
+     started before phase 14 (``RankPair``); each of these phases hands
+     them its job at its start and runs its world of one and its
+     one-process steps beside it, so their step times are not clean;
  19. the model mesh axis (``parallel/tensor_parallel.py``): (a) phase 18's
      backbone runs under ``--mesh_shape 1 1 --mesh_axes data model
      --param_sharding tp`` in a world of one under NCCL (the TP code and its
@@ -170,7 +179,17 @@ Phases, each of which exits non-zero on failure:
      and a TEDM head step with groupnorm (B.3, B.1), each against one
      process on the same batch at phases 6 and 10's gates, both ranks'
      parameters equal, each rank's launches one process's, and each rank's
-     peak memory beside one process's (a record);
+     peak memory beside one process's (a record); (c) the contrastive arms
+     under ``--shard_spatial``: a global_cl and a local_cl step at full
+     width (128^2, 2 images, the views built whole from a seeded generator
+     on the card, then each rank's rows) on a (1, 1) mesh in a world of one
+     against no group bit for bit, and on (b)'s 2 ranks against one
+     process at (b)'s gates, with a glob_loc_finetune step in bf16
+     (encoder frozen), both ranks' parameters equal, peak memory a rank
+     beside one process's; (d) run_tests of a seeded TEDM head checkpoint
+     whose config shards spatially, on (b)'s 2 ranks (2 images a set),
+     against the same CLI in one process: the npz files' probabilities at
+     PATH_TOL, each image's Dice, precision and recall to 1e-6;
 then one JSON line listing every kernel and the final JSON status line.
 """
 
@@ -225,15 +244,19 @@ BF16_STEP_GRAD_TOL = 5e-2
 OPT_IN_STEPS = 8               # backbone steps of each opt-in training run
 HEAD_STEPS = 2                 # TEDM head steps with --use_pallas_groupnorm
 EVAL_STEPS = 4                 # training steps of each phase-14 run
-EVAL_SETS = {"JSRT_val": 25, "JSRT_test": 25, "NIH": 100, "Montgomery": 100}  # images of each eval set
+EVAL_SETS = {"JSRT_val": 25, "JSRT_test": 25, "NIH": 25, "Montgomery": 25}  # images of each eval set
+# UNet rows of phase 14's card-vs-CPU check: the first images of the first
+# JSRT_val batch whose rows (images x the head's timesteps) fill 16; the
+# whole batch is held against the plain path on the card
+EVAL_CPU_ROWS = 16
 CL_STEPS = 4                   # steps of each phase-15 pretraining run (batch 16, 32 views)
 CL_VAL_BATCHES = 2             # --max_val_steps of the pretraining runs
 COND_STEPS = 4                 # conditional backbone steps of phase 16
-DDIM_STEPS = 10                # --ddim_steps of phase 16's eval
+DDIM_STEPS = 4                 # --ddim_steps of phase 16's eval and its trajectories
 EVAL_RUNS = 5                  # trajectories a batch in the conditional eval (run_tests.py:121-137)
-# one 10-step trajectory on the card against the CPU plain path, absolute on
-# the sample in [-1, 1]: measured on an H100 7.2e-7 (DDIM) and 1.4e-6
-# (DPM++(2M)); the gate is 70x the larger
+# one DDIM_STEPS-step trajectory on the card against the CPU plain path,
+# absolute on the sample in [-1, 1]: measured on an H100 at 10 steps 7.2e-7
+# (DDIM) and 1.4e-6 (DPM++(2M)); the gate is 70x the larger
 SAMPLER_TOL = 1e-4
 GN, RB, FA = "fused_group_norm_film_silu", "fused_resnet_block", "flash_cosine_attention"
 RBB = "fused_resnet_block_backward"
@@ -1471,7 +1494,8 @@ def export_hard_corpus(tmp) -> str:
 
     root = os.path.join(tmp, "corpus")
     t0 = time.perf_counter()
-    export_corpus.main(["--root", root, "--img_size", "128", "--hard", "--n_cxr", "64", "--seed", str(SEED)])
+    export_corpus.main(["--root", root, "--img_size", "128", "--hard", "--n_cxr", "64", "--n_crossdomain",
+                        str(EVAL_SETS["NIH"]), "--seed", str(SEED)])
     print(f"corpus written in {time.perf_counter() - t0:.1f} s", flush=True)
     return root
 
@@ -1604,11 +1628,27 @@ def check_npz(name, exp_dir) -> dict:
     return dice
 
 
+def plain_task_on_card(exp_dir):
+    """An experiment's eval task on the card with the kernels off (its
+    config under ``--no_pallas``): the plain path at the path's shapes."""
+    from tedm_tpu_torch.eval import harness as H
+
+    ckpt = os.path.join(exp_dir, "best")
+    config = H.load_config(ckpt).replace(use_pallas=False)
+    task = H.build_eval_task(config, "cuda")
+    state, _ = H.load_checkpoint(ckpt, config, map_location="cuda")
+    for key, module in task.modules.items():
+        module.load_state_dict(state[key])
+    return task
+
+
 def evaluate(name, cli, exp_dir, root):
     """One eval CLI over the four sets of the corpus: seconds, images/s and
     launches (one UNet call a batch); each npz read back, its Dice
     recomputed on the CPU; and the first JSRT_val batch's probabilities,
-    with noise given, on the card against the CPU plain path."""
+    with noise given, on the card against the plain path on the card (the
+    whole batch: the path's call shapes) and against the CPU plain path
+    (the images whose rows fill EVAL_CPU_ROWS)."""
     from tedm_tpu_torch.eval import harness as H
 
     reset_launches()
@@ -1635,22 +1675,35 @@ def evaluate(name, cli, exp_dir, root):
         fail(f"{name} eval: launches {counts}, expected {expected}")
     dice = check_npz(name, exp_dir)
 
-    _, task = H.load_experiment(exp_dir, "cuda")
-    config, task_cpu = H.load_experiment(exp_dir, "cpu")
+    config, task = H.load_experiment(exp_dir, "cuda")
+    _, task_cpu = H.load_experiment(exp_dir, "cpu")
     batch = next(iter(H.build_jsrt_loaders(config)["val"]))
-    rows = len(task.t_steps) * len(batch["valid"])
-    noise = [np.random.RandomState(SEED).randn(rows, 128, 128, 1).astype(np.float32)] if rows else None
+    b, steps = len(batch["valid"]), len(task.t_steps)
+    noise = np.random.RandomState(SEED).randn(steps * b, 128, 128, 1).astype(np.float32) if steps else None
+    whole = None if noise is None else [noise]
+    on_card, _ = H.predict_dataset(task, [batch], fold=task.fold, noise=whole)
+    reset_launches()
+    on_plain, _ = H.predict_dataset(plain_task_on_card(exp_dir), [batch], fold=task.fold, noise=whole)
+    plain_launches = {k: v for k, v in read_launches().items() if v}
+    plain_err = float(np.abs(on_card - on_plain).max())
+    # the CPU takes the first n images, and their rows of the step-major noise
+    n = min(b, max(1, EVAL_CPU_ROWS // max(steps, 1)))
+    head, head_noise = {k: v[:n] for k, v in batch.items()}, None
+    if noise is not None:
+        head_noise = [noise.reshape(steps, b, *noise.shape[1:])[:, :n].reshape(-1, *noise.shape[1:])]
     t0 = time.perf_counter()
-    on_cpu, _ = H.predict_dataset(task_cpu, [batch], fold=task.fold, noise=noise)
+    on_cpu, _ = H.predict_dataset(task_cpu, [head], fold=task.fold, noise=head_noise)
     cpu_s = time.perf_counter() - t0
-    on_card, _ = H.predict_dataset(task, [batch], fold=task.fold, noise=noise)
-    err = float(np.abs(on_card - on_cpu).max())
-    print(f"{name}: mean Dice {dice}; first JSRT_val batch ({len(batch['valid'])} images) card vs CPU plain path: "
-          f"max_abs_err {err:.3e} (tol {PATH_TOL}); CPU {cpu_s:.1f} s", flush=True)
-    if not err <= PATH_TOL:
-        fail(f"{name}: the card and the CPU plain path disagree on the first JSRT_val batch: {err}")
+    err = float(np.abs((on_card[:, :n] if task.fold > 1 else on_card[:n]) - on_cpu).max())
+    print(f"{name}: mean Dice {dice}; first JSRT_val batch ({b} images, {max(steps, 1) * b} UNet rows) on the card "
+          f"against the plain path on the card (kernels off, launches {plain_launches}): max_abs_err "
+          f"{plain_err:.3e}; its first {n} images ({max(steps, 1) * n} rows) against the CPU plain path: max_abs_err "
+          f"{err:.3e} (tol {PATH_TOL} each); CPU {cpu_s:.1f} s", flush=True)
+    if plain_launches or not (plain_err <= PATH_TOL and err <= PATH_TOL):
+        fail(f"{name}: the card disagrees with the plain path on the first JSRT_val batch: {plain_err} on the "
+             f"card (launches {plain_launches}), {err} on the CPU")
     return counts, {"seconds": secs, "images": images, "images_per_s": images / secs, "per_set": per_set,
-                    "dice": dice, "first_batch_max_abs_err": err}
+                    "dice": dice, "first_batch_max_abs_err": {"plain_on_card": plain_err, "cpu": err}}
 
 
 def eval_harness(tmp, backbone, root):
@@ -1681,7 +1734,25 @@ def eval_harness(tmp, backbone, root):
                                ("PDDM", run_tests, pddm)):
         counts, report[f"{name} eval"] = evaluate(name, cli, exp_dir, root)
         runs.append((f"{name} eval", counts))
+    report["tables"] = paper_table(os.path.join(tmp, "eval_logs"))
     return runs, report, base
+
+
+def paper_table(logs) -> list:
+    """The port's ``reporting.tables`` over phase 14's npz files (Dice x100,
+    n = 1): its main-table rows, each with a number."""
+    from tedm_tpu_torch.reporting import tables
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        tables.main(["--logs", logs, "--experiments", "baseline", "TEDM", "PDDM", "--datasizes", "1"])
+    table = [line for line in text.getvalue().splitlines() if not line.startswith("Experiment ")]
+    rows = [line for line in table if line.endswith("\\\\")]
+    print("phase 14 reporting.tables over the eval files (Dice x100 mean $\\pm$ std at n = 1, by set):\n"
+          + "\n".join(table), flush=True)
+    if len(rows) != 9 or any(row.split("&")[1].strip() == "--" for row in rows):
+        fail(f"phase 14: reporting.tables printed {rows}")
+    return rows
 
 
 # ------------------------------------------------------------------ phase 15
@@ -1933,7 +2004,7 @@ GRAPH_TOL = 1e-6             # graphed and exported probabilities against eager 
 GRAPH_REQUESTS = 6           # requests a predictor: the first eager (the graph's warm-up, then its capture)
 REMAT_STEPS = 4              # path (a) steps of each --remat run
 PROFILE_STEPS = 16           # path (a) steps of the --profile_dir run (steps 10-15 traced)
-EXPORT_STEPS = 4             # steps of the exported DDIM and DPM++ samplers
+EXPORT_STEPS = 2             # steps of the exported DDIM and DPM++ samplers (export and load scale with it)
 ANCESTRAL_GRID = 10          # the trajectory's last steps that the exported ancestral step runs
 RF = ("--use_pallas_resblock", "--use_pallas_flash")
 # the kernels of which each call launches ``per``, by short name: a call's mark in a trace
@@ -2064,7 +2135,8 @@ def graphed_serving(tmp):
 
 
 EXPORTED_CALL = """
-import json, sys
+import json, sys, time
+t0 = time.perf_counter()
 import numpy as np
 import torch
 from tedm_tpu_torch.serve.export import load_exported
@@ -2076,10 +2148,14 @@ layouts = ("prenorm_linear_attention", "fused_resnet_block")  # the kernels that
 wrapper = lambda k: getattr(sys.modules.get("tedm_tpu_torch.kernels." + kernels[k]), k, None)
 built = lambda: {k: getattr(wrapper(k), "layouts_built", 0) for k in layouts}
 x = np.load(sys.argv[1])
+secs = {"import": time.perf_counter() - t0}
 for path, y_path in zip(sys.argv[2::2], sys.argv[3::2]):
+    t0 = time.perf_counter()
     call = load_exported(path)
+    secs["load"] = time.perf_counter() - t0
     before = built()
     call(x)  # the first call lays the baked weights out for the kernels
+    secs["first_call"] = time.perf_counter() - t0 - secs["load"]
     first = built()
     for k in kernels:
         if wrapper(k) is not None:
@@ -2088,30 +2164,88 @@ for path, y_path in zip(sys.argv[2::2], sys.argv[3::2]):
     second = built()
     print(json.dumps({"launches": {k: 0 if wrapper(k) is None else wrapper(k).launches for k in kernels},
                       "layouts_first": {k: first[k] - before[k] for k in layouts},
-                      "layouts_second": {k: second[k] - first[k] for k in layouts}}), flush=True)
+                      "layouts_second": {k: second[k] - first[k] for k in layouts}, "seconds": secs}), flush=True)
+    secs = {}
 """
 EXPORTED = ((False, ()), (True, ()), (True, RF))  # phase 4's, 8's and 12's TEDM checkpoints
+EXPORT_ALL = """
+import json, sys, time
+from tedm_tpu_torch.serve.export import export_predictor, export_sampler
+from tedm_tpu_torch.utils.device import strict_fp32
+
+strict_fp32()
+steps = int(sys.argv[1])
+for kind, run, sampler, path in zip(*[iter(sys.argv[2:])] * 4):
+    t0 = time.perf_counter()
+    if kind == "predictor":
+        size = export_predictor(run, path, device="cuda")
+    else:
+        size = export_sampler(run, path, sampler=sampler, num_steps=steps, device="cuda")
+    print("EXPORTED", json.dumps({"path": path, "bytes": size, "export_s": time.perf_counter() - t0}), flush=True)
+"""
 
 
-def export_predictors(tmp):
-    """``export_predictor`` of phase 4's TEDM checkpoint in fp32 and bf16,
-    and of phase 12's bf16 resblock + flash one, then one fresh process,
-    started here and left running, that imports only torch and
-    ``tedm_tpu_torch.serve.export`` and loads and calls each twice. Returns
-    what ``check_exported_predictors`` reads."""
-    from tedm_tpu_torch.serve.export import export_predictor
+class Exports:
+    """Phase 17's artifacts, exported by processes of their own, started at
+    the phase's start: torch.export takes ~10 s of host time a traced UNet
+    call and holds its process's interpreter, so the exports run beside
+    this process's serving, training and checks, in three processes:
+    ``export_predictor`` of phase 4's TEDM checkpoint in fp32 and bf16 and
+    of phase 12's bf16 resblock + flash one; and ``export_sampler`` of
+    ``samplers``' runs, in two halves. ``result(path)`` waits for an
+    artifact and returns its bytes and its seconds of export."""
 
+    def __init__(self, tmp, samplers):
+        name = lambda mixed, flags: label_of(mixed, flags).strip().replace(" ", "_") or "fp32"
+        self.predictors = [(mixed, flags, os.path.join(tmp, f"tedm_{name(mixed, flags)}.pt2")) for mixed, flags in EXPORTED]
+        self.samplers = [(run, sampler, os.path.join(tmp, f"sampler_{i}_{sampler}.pt2"))
+                         for i, (run, sampler) in enumerate(samplers)]
+        jobs = [[("predictor", os.path.join(serve_logs(tmp, mixed, flags), "TEDM", "1"), "-", path)
+                 for mixed, flags, path in self.predictors]]
+        half = (len(self.samplers) + 1) // 2
+        jobs += [[("sampler", *row) for row in part] for part in (self.samplers[:half], self.samplers[half:])]
+        env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+        self.procs, self.owner, self.done = [], {}, {}
+        for i, job in enumerate(jobs):
+            err = os.path.join(tmp, f"exports_{i}.err")
+            with open(err, "w") as f:
+                argv = [sys.executable, "-c", EXPORT_ALL, str(EXPORT_STEPS), *(a for row in job for a in row)]
+                proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=f, text=True, env=env)
+            self.procs.append((proc, err))
+            self.owner.update({row[-1]: i for row in job})
+
+    def result(self, path):
+        proc, err = self.procs[self.owner[path]]
+        while path not in self.done:
+            line = proc.stdout.readline()
+            if not line:
+                proc.wait()
+                with open(err) as f:
+                    fail(f"an export process ended (code {proc.returncode}) before {path}:\n{f.read()[-3000:]}")
+            if line.startswith("EXPORTED "):  # the loaders print too
+                row = json.loads(line[len("EXPORTED "):])
+                self.done[row["path"]] = row
+        return self.done[path]["bytes"], self.done[path]["export_s"]
+
+    def close(self):
+        for proc, _ in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+
+
+def export_predictors(tmp, exports):
+    """Phase 4's, 8's and 12's TEDM predictors as ``exports`` wrote them,
+    then one fresh process, started here and left running, that imports
+    only torch and ``tedm_tpu_torch.serve.export`` and loads and calls each
+    twice. Returns what ``check_exported_predictors`` reads."""
     img = np.random.RandomState(SEED + 18).rand(1, 128, 128, 1).astype(np.float32)
     x_path = os.path.join(tmp, "export_x.npy")
     np.save(x_path, img.transpose(0, 3, 1, 2))
     rows, args = [], []
-    for mixed, flags in EXPORTED:
-        logs = serve_logs(tmp, mixed, flags)
-        path = os.path.join(tmp, f"tedm_{label_of(mixed, flags).strip().replace(' ', '_') or 'fp32'}.pt2")
-        t0 = time.perf_counter()
-        size = export_predictor(os.path.join(logs, "TEDM", "1"), path, device="cuda")
-        export_s = time.perf_counter() - t0
-        want = eager_predictor(logs)._probabilities(img, "TEDM", 1, mean=False)
+    for mixed, flags, path in exports.predictors:
+        want = eager_predictor(serve_logs(tmp, mixed, flags))._probabilities(img, "TEDM", 1, mean=False)
+        size, export_s = exports.result(path)
         rows.append((mixed, flags, size, export_s, want, path + ".y.npy"))
         args += [path, path + ".y.npy"]
     env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
@@ -2138,8 +2272,10 @@ def check_exported_predictors(rows, proc, started):
         got = np.load(y_path).transpose(0, 2, 3, 1)
         gap = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
         expected = {k: v for k, v in per_unet_call(mixed, flags).items() if k in counts}
-        print(f"exported {label}predictor: {size} bytes, exported in {export_s:.1f} s; called in a fresh process "
-              f"(the artifacts loaded and called twice in {process_s:.1f} s, beside the sampler exports): output "
+        secs = {k: round(v, 1) for k, v in line["seconds"].items()}
+        print(f"exported {label}predictor: {size} bytes, exported in {export_s:.1f} s (the export process); called "
+              f"in a fresh process (the artifacts loaded and called twice in {process_s:.1f} s, beside the other "
+              f"checks; this one's seconds {secs}): output "
               f"{got.shape} against Predictor's folded rows: max_abs_err {gap:.3e} (tol {GRAPH_TOL}); launches of "
               f"its second call {counts}; weight layouts built by the first call {first}, by the second {second}",
               flush=True)
@@ -2148,7 +2284,7 @@ def check_exported_predictors(rows, proc, started):
         if any(second.values()) or any(bool(first[k]) != bool(counts[k]) for k in first):
             fail(f"exported {label}predictor: weight layouts built {first} by the first call and {second} by the "
                  f"second; expected some by the first for each kernel that launched, none by the second")
-        report[f"{label}predictor".strip()] = {"bytes": size, "export_s": export_s, "max_abs_err": gap,
+        report[f"{label}predictor".strip()] = {"bytes": size, "export_s": export_s, "max_abs_err": gap, "seconds": secs,
                                                "layouts_first_call": first}
         runs.append((f"exported {label}predictor (fresh process)", launches(**counts)))
     report["fresh_process_s"] = process_s
@@ -2163,27 +2299,23 @@ def layouts_built() -> dict:
             RB: resblock.fused_resnet_block.layouts_built}
 
 
-def exported_samplers(tmp, backbone_dir, backbone16_dir, cond_dir):
-    """``export_sampler`` for phase 5's img_only backbone (DDIM, and the
-    ancestral step over the trajectory's last ``ANCESTRAL_GRID`` steps),
-    phase 9's bf16 one (the ancestral step) and phase 16's conditional
-    backbone (DPM++), each called twice: the second call against the eager
-    loop from the same noise at ``SAMPLER_TOL``, its kernel launches
-    counted, and no weight laid out again after the first."""
+def exported_samplers(exports):
+    """``export_sampler`` (``exports``) for phase 5's img_only backbone (DDIM,
+    and the ancestral step over the trajectory's last ``ANCESTRAL_GRID``
+    steps), phase 9's bf16 one (the ancestral step) and phase 16's
+    conditional backbone (DPM++), each called twice: the second call
+    against the eager loop from the same noise at ``SAMPLER_TOL``, its
+    kernel launches counted, and no weight laid out again after the first."""
     from tedm_tpu_torch.eval.harness import load_diffusion_experiment
     from tedm_tpu_torch.models import diffusion as D
-    from tedm_tpu_torch.serve.export import export_sampler, load_exported
+    from tedm_tpu_torch.serve.export import load_exported
 
     runs, report = [], {}
     rs = np.random.RandomState(SEED + 19)
-    for run, sampler in ((backbone_dir, "ddim"), (backbone_dir, "ancestral"), (backbone16_dir, "ancestral"),
-                         (cond_dir, "dpmpp")):
+    for run, sampler, path in exports.samplers:
         config, unet, sched = load_diffusion_experiment(run, "cuda")
         label = f"{label_of(config.mixed_precision)}{sampler}"
-        path = os.path.join(tmp, f"sampler_{label.replace(' ', '_')}.pt2")
-        t0 = time.perf_counter()
-        size = export_sampler(run, path, sampler=sampler, num_steps=EXPORT_STEPS, device="cuda")
-        export_s = time.perf_counter() - t0
+        size, export_s = exports.result(path)
         call = load_exported(path)
         x_T = torch.from_numpy(rs.randn(1, 1, 128, 128).astype(np.float32)).cuda()
         cond = None
@@ -2216,7 +2348,7 @@ def exported_samplers(tmp, backbone_dir, backbone16_dir, cond_dir):
         err = float(np.abs(got - want).max())
         expected = {k: v * calls for k, v in per_unet_call(config.mixed_precision).items()}
         print(f"exported {label} sampler of the {config.experiment} backbone: {size} bytes, exported in "
-              f"{export_s:.1f} s; against the eager loop from the same noise ({calls} UNet calls): max_abs_err "
+              f"{export_s:.1f} s (the export process); against the eager loop from the same noise ({calls} UNet calls): max_abs_err "
               f"{err:.3e} (tol {SAMPLER_TOL}); launches {({k: v for k, v in counts.items() if v})}; weight layouts "
               f"built by the first call {first}, by the second {second}", flush=True)
         if not err <= SAMPLER_TOL or counts != expected:
@@ -2358,15 +2490,23 @@ def phase_17(tmp, served, served16, backbone_dir, backbone16, cond_dir):
     backbone16_dir = os.path.join(tmp, "bf16_backbone")
     os.makedirs(backbone16_dir)
     os.symlink(os.path.abspath(backbone16), os.path.join(backbone16_dir, "best"))
-    parts = [("no_pallas", no_pallas_serving(tmp, served, served16)), ("graphs", graphed_serving(tmp))]
-    exported = export_predictors(tmp)  # their fresh process runs beside the sampler exports
-    parts += [("exported_samplers", exported_samplers(tmp, backbone_dir, backbone16_dir, cond_dir)),
-              ("exported_predictor", check_exported_predictors(*exported)),
-              ("remat", remat_runs(tmp)), ("profile_dir", profile_dir_run(tmp))]
+    exports = Exports(tmp, ((backbone_dir, "ddim"), (backbone_dir, "ancestral"), (backbone16_dir, "ancestral"),
+                            (cond_dir, "dpmpp")))
+    exported = None
+    try:
+        parts = [("no_pallas", no_pallas_serving(tmp, served, served16)), ("graphs", graphed_serving(tmp))]
+        exported = export_predictors(tmp, exports)  # their fresh process runs beside what follows
+        parts += [("remat", remat_runs(tmp)), ("profile_dir", profile_dir_run(tmp))]
+        report["grid"] = serve_grid(tmp)
+        parts += [("exported_samplers", exported_samplers(exports)),
+                  ("exported_predictor", check_exported_predictors(*exported))]
+    finally:
+        exports.close()
+        if exported is not None and exported[1].poll() is None:
+            exported[1].kill()
     for name, (r, rep) in parts:
         runs += r
         report[name] = rep
-    report["grid"] = serve_grid(tmp)
     return runs, report
 
 
@@ -2375,7 +2515,7 @@ def phase_17(tmp, served, served16, backbone_dir, backbone16, cond_dir):
 # the backbone paths of phase 18: fp32 (B.1, B.1b), bf16 with the block
 # kernels (B.2, B.4, B.4b, B.5), GroupNorm (B.3)
 DP_PATHS = ((), ("--mixed_precision", "--use_pallas_resblock", "--use_pallas_flash"), ("--use_pallas_groupnorm",))
-DP_STEPS = 10                  # steps of each phase-18 run: step times are medians of steps 2-10
+DP_STEPS = 5                   # steps of each phase-18 run: step times are medians of steps 2-5
 DP_GATE_STEP = 4               # ... and the parameters are compared after step 4
 DP_LAYOUT_LR = 0.01            # the layout check's lr: each step moves the weights far past bf16's spacing
 
@@ -2386,6 +2526,78 @@ def free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
+
+
+class RankPair:
+    """Two ranks on the one card (spawned processes over gloo: NCCL refuses
+    two ranks on one device), started once before phase 14: each takes some
+    13 s to import the port and reach the card, which they spend beside
+    phases 14-17. Phases 18, 19 and 20 each hand them one job at their
+    start (``submit``): a module-level ``target(rank, out)`` that makes its
+    own process group, runs its steps and writes ``out/rank{r}.pt``; the
+    phase runs its world of one and its one-process steps meanwhile, then
+    waits (the handle ``submit`` returns: each rank's results and the job's
+    seconds). Every launch counter is a process's own."""
+
+    def __init__(self):
+        import torch.multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self.jobs = [ctx.Queue() for _ in range(2)]
+        self.done = ctx.Queue()
+        self.procs = [ctx.Process(target=_rank_loop, args=(r, self.jobs[r], self.done)) for r in range(2)]
+        for p in self.procs:
+            p.start()
+
+    def submit(self, target, out, timeout):
+        import queue
+
+        for q in self.jobs:
+            q.put((target.__name__, out))
+        t0 = time.perf_counter()
+
+        def wait():
+            left = 2
+            while left and time.perf_counter() < t0 + timeout and all(p.is_alive() for p in self.procs):
+                try:
+                    self.done.get(timeout=1.0)
+                    left -= 1
+                except queue.Empty:
+                    pass
+            secs = time.perf_counter() - t0
+            if left:  # a rank failed to finish: neither takes another job
+                self.close()
+            return [torch.load(f, weights_only=False) if os.path.exists(f := os.path.join(out, f"rank{r}.pt"))
+                    else {"error": f"no result after {secs:.0f} s"} for r in range(2)], secs
+        return wait
+
+    def close(self):
+        for q, p in zip(self.jobs, self.procs):
+            if p.is_alive():
+                q.put(None)
+        for p in self.procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def _rank_loop(rank, jobs, done):
+    """A rank of ``RankPair``: reach the card and import the port, then run
+    each job it is handed, the torch.backends settings as it started."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.zeros(1, device="cuda")
+    import tedm_tpu_torch.eval.run_tests  # noqa: F401
+    import tedm_tpu_torch.train  # noqa: F401
+
+    flags = lambda: (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+                     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    start = flags()
+    while (job := jobs.get()) is not None:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) = start
+        globals()[job[0]](rank, job[1])
+        done.put(rank)
 
 
 def dp_run(tmp, flags, mode, label, steps=DP_STEPS, gate_step=DP_GATE_STEP):
@@ -2570,32 +2782,25 @@ def backbone_step(batch, rows, dp=None):
             "params": {n: p.detach().cpu() for n, p in unet.named_parameters()}}
 
 
-def two_ranks_on_one_card(tmp):
+def two_ranks_on_one_card(tmp, pair):
     """DDP of 2 ranks on the one card over gloo (NCCL refuses two ranks on
-    one device). Each rank runs a backbone through train.main for 2 steps
-    at batch DP_TWO_ROWS and keeps its logged losses and its parameters
-    after step 2, then takes one DDP step on its rows of
-    ``two_rank_inputs``' global batch. Returns each rank's results (or the
-    error that stopped it) and this process's step on the whole batch."""
-    import torch.multiprocessing as mp
-
+    one device), handed to ``pair``. Each rank runs a backbone through
+    train.main for 2 steps at batch DP_TWO_ROWS and keeps its logged losses
+    and its parameters after step 2, then takes one DDP step on its rows of
+    ``two_rank_inputs``' global batch. Returns a function that takes this
+    process's step on the whole batch, waits for the ranks and returns each
+    rank's results (or the error that stopped it), the one-process step and
+    the job's seconds."""
     out = os.path.join(tmp, "dp", "two")
     os.makedirs(out, exist_ok=True)
     batch = two_rank_inputs(out)
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_gloo_rank, args=(r, out)) for r in range(2)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(300)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join()
-    one = backbone_step(batch, slice(None))
-    ranks = [torch.load(f, weights_only=False) if os.path.exists(f := os.path.join(out, f"rank{r}.pt"))
-             else {"error": "no result"} for r in range(2)]
-    return ranks, one
+    wait = pair.submit(_gloo_rank, out, 300)
+
+    def finish():
+        one = backbone_step(batch, slice(None))
+        ranks, secs = wait()
+        return ranks, one, secs
+    return finish
 
 
 def _gloo_rank(rank, out):
@@ -2633,6 +2838,7 @@ def _gloo_rank(rank, out):
                     "--val_freq", "100", "--batch_size", str(DP_TWO_ROWS), "--seed", str(SEED), "--multihost",
                     "--log_dir", os.path.join(out, f"r{rank}", "run")], device="cuda:0")
         handle.remove()
+        logging.MetricsLogger.log = log
         batch = torch.load(os.path.join(out, "batch.pt"), weights_only=False)
         step = backbone_step(batch, slice(rank * DP_TWO_ROWS, (rank + 1) * DP_TWO_ROWS), DataParallel("replicated"))
         res = {"losses": losses, "params_after_2": params, "step": step}
@@ -2664,10 +2870,11 @@ def adam_param_err(got, want, grads, lr):
     return worst, where
 
 
-def phase_18(tmp, base_dir, root):
+def phase_18(tmp, base_dir, root, pair):
     """Phase 18: data parallel in a world of one under NCCL, against the same
-    runs without a process group. Returns the runs' launches by path and the
-    measurements."""
+    runs without a process group, while ``pair`` runs the 2-rank check.
+    Returns the runs' launches by path, the measurements and the runs
+    without a group (phase 19 holds TP to them too)."""
     import torch.distributed as dist
 
     env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()), "RANK": "0", "WORLD_SIZE": "1",
@@ -2680,6 +2887,7 @@ def phase_18(tmp, base_dir, root):
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     runs, report = [], {}
     try:
+        finish_two = two_ranks_on_one_card(tmp, pair)
         # every run without a group first: --multihost's group lives on in the process
         plain = {flags: dp_run(tmp, flags, None, label_of("--mixed_precision" in flags, flags) + "plain")
                  for flags in DP_PATHS}
@@ -2732,9 +2940,7 @@ def phase_18(tmp, base_dir, root):
         report["layouts"] = {"errors": errs, "stale": stale, "reused": reused, "same_key": hazards,
                              "control_errors": ctl, "control_stale": ctl_stale, "control_reused": ctl_reused,
                              "control_same_key": ctl_hazards}
-        t0 = time.perf_counter()
-        two, one = two_ranks_on_one_card(tmp)
-        secs = time.perf_counter() - t0
+        two, one, secs = finish_two()
         errors = [r["error"] for r in two if "error" in r]
         if errors:
             fail(f"phase 18: 2 ranks on one card: {errors}")
@@ -2749,7 +2955,8 @@ def phase_18(tmp, base_dir, root):
         step_same = steps[0]["loss"] == steps[1]["loss"] and all(
             torch.equal(steps[0]["params"][n], steps[1]["params"][n]) for n in one["params"])
         print(f"phase 18 DDP of 2 ranks on the one card over gloo (NCCL refuses two ranks on one device): "
-              f"{secs:.1f} s; train.main at batch {DP_TWO_ROWS} a rank: each rank's logged losses {losses}, "
+              f"{secs:.1f} s from its hand-over, beside the runs above; train.main at batch {DP_TWO_ROWS} a rank: "
+              f"each rank's logged losses {losses}, "
               f"parameters after step 2 bitwise equal on both ranks: {same_params}; one DDP step on rows of a "
               f"global batch of {2 * DP_TWO_ROWS} against one process on the whole batch, with the same t and "
               f"noise: loss {steps[0]['loss']:.6f} vs {one['loss']:.6f} (relative {loss_err:.2e}, tol "
@@ -2783,7 +2990,7 @@ def phase_18(tmp, base_dir, root):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    return runs, report
+    return runs, report, plain
 
 
 # ------------------------------------------------------------------ phase 19
@@ -2795,14 +3002,12 @@ TP_TWO_PATHS = ((), ("--mixed_precision", "--use_pallas_resblock", "--use_pallas
 DEVICE_STEPS = 3               # backbone steps of the --data_backend device run
 
 
-def tp_world_of_one(tmp):
+def tp_world_of_one(tmp, plain):
     """Phase 19 (a): TP in a world of one under NCCL (mesh (1, 1) over data
     and model): phase 18's backbone runs on each of its paths, against the
-    same run without a group. Returns the runs' launches by path and the
-    measurements."""
+    same run without a group (``plain``, phase 18's). Returns the runs'
+    launches by path and the measurements."""
     runs, report = [], {}
-    plain = {flags: dp_run(tmp, flags, None, label_of("--mixed_precision" in flags, flags) + "tp plain")
-             for flags in DP_PATHS}
     for flags in DP_PATHS:
         mixed = "--mixed_precision" in flags
         kernel_flags = tuple(f for f in flags if f != "--mixed_precision")
@@ -2983,42 +3188,38 @@ def param_bytes(module, plan) -> dict:
             "full": sum(full.values()), "sharded": sum(plan.values())}
 
 
-def tp_two_ranks(tmp):
+def tp_two_ranks(tmp, pair):
     """Phase 19 (b): TP of 2 ranks on the one card over gloo, mesh (1, 2) at
-    --tp_min_width TP_WIDTH: a backbone step in fp32 and in bf16 with
-    resblock + flash, and a TEDM head step with groupnorm, each against one
-    process on the same batch. Returns the runs' launches and the
-    measurements."""
-    import torch.multiprocessing as mp
-
+    --tp_min_width TP_WIDTH, handed to ``pair``: a backbone step in fp32 and
+    in bf16 with resblock + flash, and a TEDM head step with groupnorm, each
+    against one process on the same batch. Returns a function that takes
+    the one-process steps, waits for the ranks and returns the runs'
+    launches and the measurements."""
     out = os.path.join(tmp, "tp", "two")
     os.makedirs(out, exist_ok=True)
     batch = tp_inputs(out)
-    t0 = time.perf_counter()
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_tp_gloo_rank, args=(r, out)) for r in range(2)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(600)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join()
-    secs = time.perf_counter() - t0
-    ranks = [torch.load(f, weights_only=False) if os.path.exists(f := os.path.join(out, f"rank{r}.pt"))
-             else {"error": "no result"} for r in range(2)]
-    errors = [r["error"] for r in ranks if "error" in r]
-    if errors:
-        fail(f"phase 19: TP on 2 ranks: {errors}")
-    runs, report = [], {"seconds": secs, "rank_seconds": ranks[0]["seconds"]}
+    wait = pair.submit(_tp_gloo_rank, out, 600)
+    return lambda: tp_two_ranks_against_one(batch, wait)
+
+
+def tp_two_ranks_against_one(batch, wait):
+    """Phase 19 (b)'s one-process steps, then the ranks' (``wait``) against
+    them."""
     cases = [(flags, label_of("--mixed_precision" in flags, tuple(f for f in flags if f != "--mixed_precision"))
               + "backbone step", lambda flags=flags: tp_backbone_step(batch, flags)) for flags in TP_TWO_PATHS]
     cases.append(("TEDM", "--use_pallas_groupnorm TEDM head step", lambda: tp_head_step(batch)))
+    ones = []
     for key, label, one_step in cases:
         one = one_step()
         one.pop("module", None)
         one.pop("backbone", None)
+        ones.append((key, label, one))
+    ranks, secs = wait()
+    errors = [r["error"] for r in ranks if "error" in r]
+    if errors:
+        fail(f"phase 19: TP on 2 ranks: {errors}")
+    runs, report = [], {"seconds": secs, "rank_seconds": ranks[0]["seconds"]}
+    for key, label, one in ones:
         mixed = "--mixed_precision" in key
         loss_tol, grad_tol = (BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL) if mixed else (STEP_LOSS_TOL, STEP_GRAD_TOL)
         r0, r1 = ranks[0][key], ranks[1][key]
@@ -3045,7 +3246,8 @@ def tp_two_ranks(tmp):
         runs.append((f"{label.replace(' step', '')} TP 1x2 (gloo)", r0["counts"]))
         report[label] = {"loss_rel_err": loss_err, "worst_grad_rel_err": grad_errs[worst], "param_bytes": b,
                          "launches": {k: v for k, v in r0["counts"].items() if v}}
-    print(f"phase 19 TP of 2 ranks over gloo: {secs:.1f} s of command, {ranks[0]['seconds']:.1f} s in rank 0's steps "
+    print(f"phase 19 TP of 2 ranks over gloo: {secs:.1f} s from its hand-over (beside the world of one), "
+          f"{ranks[0]['seconds']:.1f} s in rank 0's steps "
           "(gloo copies each gathered tensor through the host: not a cost of TP on NCCL)", flush=True)
     return runs, report
 
@@ -3117,8 +3319,10 @@ def grain_backend(tmp):
     fail("phase 19: --data_backend grain ran without the grain package")
 
 
-def phase_19(tmp):
-    """Phase 19: the model mesh axis and the input backends."""
+def phase_19(tmp, pair, plain):
+    """Phase 19: the model mesh axis and the input backends; ``pair`` runs
+    the 2-rank steps beside the world of one, which is held to phase 18's
+    runs without a group (``plain``)."""
     import torch.distributed as dist
 
     env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()), "RANK": "0", "WORLD_SIZE": "1",
@@ -3127,8 +3331,9 @@ def phase_19(tmp):
     os.environ.update(env)
     cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    finish_two = tp_two_ranks(tmp, pair)
     try:
-        runs, report = tp_world_of_one(tmp)
+        runs, report = tp_world_of_one(tmp, plain)
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
         if dist.is_initialized():
@@ -3138,7 +3343,7 @@ def phase_19(tmp):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    runs2, report["two ranks (gloo)"] = tp_two_ranks(tmp)
+    runs2, report["two ranks (gloo)"] = finish_two()
     report["device backend"] = device_backend(tmp)
     report["grain backend"] = grain_backend(tmp)
     return runs + runs2, report
@@ -3150,6 +3355,11 @@ SP_AXES = ("--mesh_axes", "data", "spatial", "--shard_spatial")
 SP_PATHS = ((), ("--mixed_precision",), ("--use_pallas_groupnorm", "--use_pallas_resblock", "--use_pallas_flash"))
 SP_STEPS = 3                   # path (a) steps of each phase-20 (a) run; the parameters are compared after the last
 SP_TWO_PATHS = ((), ("--mixed_precision", "--use_pallas_resblock", "--use_pallas_flash"))
+SP_CL = ("global_cl", "local_cl")
+SP_TWO_KEYS = (*SP_TWO_PATHS, "TEDM", *SP_CL, "finetune")  # phase 20 (b) and (c)'s steps on 2 ranks
+SP_CL_ROWS = 2                 # images of a phase-20 (c) step (a CL step's 4 views)
+SP_EVAL_ROWS = 2               # images of each set in phase 20 (d), one batch
+SP_METRIC_TOL = 1e-6           # phase 20 (d): each image's Dice, precision and recall
 
 
 def sp_world_of_one(tmp):
@@ -3205,66 +3415,62 @@ def _sp_gloo_rank(rank, out):
         mesh.make_mesh((1, 2), ("data", "spatial"))
         batch = torch.load(os.path.join(out, "batch.pt"), weights_only=False)
         t0 = time.perf_counter()
-        for key in (*SP_TWO_PATHS, "TEDM"):
+        for key in SP_TWO_KEYS:
             reset_launches()
             torch.cuda.reset_peak_memory_stats()
-            dp = mesh.DataParallel("replicated", shard_spatial=True)
-            step = tp_head_step(batch, dp) if key == "TEDM" else tp_backbone_step(batch, key, dp)
+            step = sp_step(key, batch, mesh.DataParallel("replicated", shard_spatial=True))
             torch.cuda.synchronize()
-            step.pop("module", None)
-            step.pop("backbone", None)
             res[key] = {**step, "counts": read_launches(), "peak_bytes": torch.cuda.max_memory_allocated()}
         res["seconds"] = time.perf_counter() - t0
+        res["eval"] = sp_rank_eval(batch["eval_dir"])
         dist.destroy_process_group()
     except Exception:
         res = {"error": traceback.format_exc()[-2000:]}
     torch.save(res, os.path.join(out, f"rank{rank}.pt"))
 
 
-def sp_two_ranks(tmp):
-    """Phase 20 (b): --shard_spatial on 2 ranks on the one card over gloo,
-    mesh (1, 2): a backbone step in fp32 and in bf16 resblock + flash (batch
-    4, 128^2), and a TEDM head step with groupnorm (batch 1), each against
-    one process on the same batch at phase 6's and 10's gates; the kernels
-    each rank launched against one process's; each rank's peak memory
-    against one process's (a record). Returns the runs' launches and the
-    measurements."""
-    import torch.multiprocessing as mp
-
+def sp_two_ranks(tmp, pair):
+    """Phase 20 (b)-(d): --shard_spatial on 2 ranks on the one card over
+    gloo, mesh (1, 2): a backbone step in fp32 and in bf16 resblock + flash
+    (batch 4, 128^2), a TEDM head step with groupnorm (batch 1), and (c)
+    the CL steps (``sp_cl_step``), each against one process on the same
+    batch at phase 6's and 10's gates; the kernels each rank launched
+    against one process's; each rank's peak memory against one process's
+    (a record); then (d), run_tests on the ranks against one process.
+    The ranks' job goes to ``pair``; returns a function that takes the
+    one-process steps and eval, waits for the ranks and returns the runs'
+    launches and the measurements."""
     out = os.path.join(tmp, "sp", "two")
     os.makedirs(out, exist_ok=True)
-    batch = tp_inputs(out)
-    t0 = time.perf_counter()
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_sp_gloo_rank, args=(r, out)) for r in range(2)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(600)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join()
-    secs = time.perf_counter() - t0
-    ranks = [torch.load(f, weights_only=False) if os.path.exists(f := os.path.join(out, f"rank{r}.pt"))
-             else {"error": "no result"} for r in range(2)]
+    sp_dir, one_dir = sp_eval_dirs(out)
+    batch = {**tp_inputs(out), **sp_cl_inputs(), "eval_dir": sp_dir}
+    torch.save(batch, os.path.join(out, "batch.pt"))
+    wait = pair.submit(_sp_gloo_rank, out, 600)
+    return lambda: sp_two_ranks_against_one(batch, wait, sp_dir, one_dir)
+
+
+def sp_two_ranks_against_one(batch, wait, sp_dir, one_dir):
+    """Phase 20 (b)-(d)'s one-process steps and eval, then the ranks'
+    (``wait``) against them."""
+    ones = {}
+    for key in SP_TWO_KEYS:
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        one = sp_step(key, batch)
+        torch.cuda.synchronize()
+        ones[key] = one, read_launches(), torch.cuda.max_memory_allocated() - base
+    one_eval = sp_eval_one(one_dir)
+    ranks, secs = wait()
     errors = [r["error"] for r in ranks if "error" in r]
     if errors:
         fail(f"phase 20: SP on 2 ranks: {errors}")
     runs, report = [], {"seconds": secs, "rank_seconds": ranks[0]["seconds"]}
-    cases = [(flags, label_of("--mixed_precision" in flags, tuple(f for f in flags if f != "--mixed_precision"))
-              + "backbone step", lambda flags=flags: tp_backbone_step(batch, flags)) for flags in SP_TWO_PATHS]
-    cases.append(("TEDM", "--use_pallas_groupnorm TEDM head step", lambda: tp_head_step(batch)))
-    for key, label, one_step in cases:
-        reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        one = one_step()
-        torch.cuda.synchronize()
-        one_counts, one_peak = read_launches(), torch.cuda.max_memory_allocated() - base
-        one.pop("module", None)
-        one.pop("backbone", None)
-        mixed = "--mixed_precision" in key
+    for key in SP_TWO_KEYS:
+        label = sp_label(key)
+        rows = 1 if key == "TEDM" else SP_CL_ROWS if key in (*SP_CL, "finetune") else TP_ROWS
+        one, one_counts, one_peak = ones[key]
+        mixed = "--mixed_precision" in key or key == "finetune"
         loss_tol, grad_tol = (BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL) if mixed else (STEP_LOSS_TOL, STEP_GRAD_TOL)
         r0, r1 = ranks[0][key], ranks[1][key]
         loss_err = abs(r0["loss"] - one["loss"]) / abs(one["loss"])
@@ -3274,7 +3480,7 @@ def sp_two_ranks(tmp):
         peaks = [r[key]["peak_bytes"] for r in ranks]
         h = batch["x"].shape[2]
         print(f"phase 20 SP of 2 ranks on the one card over gloo, mesh 1 x 2 over data and spatial ({h // 2} of {h} "
-              f"rows a rank), {label} at batch {TP_ROWS if key != 'TEDM' else 1} against one process on the same batch: "
+              f"rows a rank), {label} at batch {rows} against one process on the same batch: "
               f"loss {r0['loss']:.6f} vs {one['loss']:.6f} (relative {loss_err:.2e}, tol {loss_tol}); gradients of "
               f"{len(grad_errs)} tensors, worst relative to the tensor's largest entry {grad_errs[worst]:.2e} at "
               f"{worst} (tol {grad_tol}); both ranks' loss and parameters equal: {same}; launches on rank 0 "
@@ -3294,14 +3500,202 @@ def sp_two_ranks(tmp):
         report[label] = {"loss_rel_err": loss_err, "worst_grad_rel_err": grad_errs[worst], "worst_at": worst,
                          "launches": {k: v for k, v in r0["counts"].items() if v},
                          "peak_bytes_per_rank": peaks, "one_process_peak_bytes": one_peak}
-    print(f"phase 20 SP of 2 ranks over gloo: {secs:.1f} s of command, {ranks[0]['seconds']:.1f} s in rank 0's steps "
+    print(f"phase 20 SP of 2 ranks over gloo: {secs:.1f} s from its hand-over (beside the world of one), "
+          f"{ranks[0]['seconds']:.1f} s in rank 0's steps "
           "(gloo copies each halo, gathered map and sum through the host: not a cost of SP on NCCL)", flush=True)
+    runs_d, report["run_tests"] = sp_eval_against_one(ranks, sp_dir, one_dir, one_eval)
+    return runs + runs_d, report
+
+
+def sp_cl_inputs() -> dict:
+    """Phase 20 (c)'s images from the seed: SP_CL_ROWS unlabelled ones for
+    the CL steps and SP_CL_ROWS labelled ones for the finetune step."""
+    from tedm_tpu_torch.data.datasets import SyntheticCXRDataset
+    from tedm_tpu_torch.trainers.common import to_nchw
+
+    size = tp_config().img_size
+    data = SyntheticCXRDataset("cxr_train", SP_CL_ROWS, size, labelled=False, seed=SEED + 20)
+    img, mask = zip(*(SyntheticCXRDataset("train", SP_CL_ROWS, size, labelled=True, seed=SEED + 20)[i]
+                      for i in range(SP_CL_ROWS)))
+    return {"cl_x": to_nchw(np.stack([data[i] for i in range(SP_CL_ROWS)]), "cpu"),
+            "ft_x": to_nchw(np.stack(img), "cpu"), "ft_y": to_nchw(np.stack(mask), "cpu")}
+
+
+def sp_cl_step(key, batch, dp=None) -> dict:
+    """One phase-20 (c) step at full width on the card from the seeded init,
+    in one process or on a rank of ``dp``'s mesh: global_cl or local_cl
+    (fp32, its views built from the whole images by a card generator seeded
+    alike in every process, LocalCL's region centres drawn after them), or
+    "finetune" (glob_loc_finetune's baseline UNet in bf16, its encoder
+    frozen). The loss, the trained tensors' gradients and the parameters."""
+    from tedm_tpu_torch.config import config_from_args
+    from tedm_tpu_torch.trainers import contrastive
+    from tedm_tpu_torch.trainers.baseline import BaselineTask
+    from tedm_tpu_torch.trainers.common import make_train_step
+
+    if key == "finetune":
+        cfg = config_from_args(["--experiment", "glob_loc_finetune", "--mixed_precision", "--seed", str(SEED),
+                                "--log_dir", tempfile.gettempdir()])
+        task = contrastive.build_task(cfg, "cuda")
+        model, frozen = task.unet, contrastive.frozen_parameters(task)
+        task = task if dp is None else BaselineTask(unet=dp.wrap(model, find_unused=True))
+        step = make_train_step(task, torch.optim.Adam(model.parameters(), lr=cfg.lr), frozen, dp)
+        loss, _ = step(batch["ft_x"].cuda(), batch["ft_y"].cuda(), torch.ones(SP_CL_ROWS, device="cuda"), freeze=True)
+        held = {id(p) for p in frozen}
+    else:
+        cfg = config_from_args(["--experiment", key, "--seed", str(SEED), "--log_dir", tempfile.gettempdir()])
+        model = contrastive.build_model(cfg, "cuda")
+        contrastive.trainable_parameters(model)
+        optimizer = torch.optim.Adam([p for p in model.parameters() if p.requires_grad], lr=cfg.lr)
+        steps = contrastive.make_steps(cfg, model, optimizer, model if dp is None else dp.wrap(model), dp)
+        loss = steps.train_step(batch["cl_x"].cuda(), torch.Generator(device="cuda").manual_seed(SEED))
+        held = set()
+    return {"loss": loss.item(),
+            "grads": {n: p.grad.float().cpu() for n, p in model.named_parameters()
+                      if p.grad is not None and id(p) not in held},
+            "params": {k: v.detach().cpu() for k, v in model.state_dict().items()}}
+
+
+def sp_cl_world_of_one() -> tuple:
+    """Phase 20 (c) in a world of one under NCCL on a (1, 1) data x spatial
+    mesh: each step against no group, bit for bit, launches equal."""
+    from tedm_tpu_torch.parallel import mesh
+
+    mesh.init_multihost("cuda")
+    mesh.make_mesh((1, 1), ("data", "spatial"))
+    batch = sp_cl_inputs()
+    runs, report = [], {}
+    for key in SP_CL:
+        reset_launches()
+        one = sp_cl_step(key, batch)
+        one_counts = read_launches()
+        reset_launches()
+        got = sp_cl_step(key, batch, mesh.DataParallel("replicated", shard_spatial=True))
+        counts = read_launches()
+        same = got["loss"] == one["loss"] and all(torch.equal(v, one["params"][k]) for k, v in got["params"].items())
+        print(f"phase 20 (c) {sp_label(key)} SP on a 1 x 1 mesh (world of one, NCCL): loss {got['loss']:.6f} against "
+              f"{one['loss']:.6f} without a group; loss and parameters bit for bit: {same}; launches "
+              f"{({k: v for k, v in counts.items() if v})} (without a group {({k: v for k, v in one_counts.items() if v})})",
+              flush=True)
+        if not same or counts != one_counts:
+            fail(f"phase 20 (c) {sp_label(key)}: the world of one is not the run without a group")
+        runs.append((f"{sp_label(key)} SP 1x1", counts))
+        report[key] = {"loss": got["loss"], "bitwise": same}
     return runs, report
 
 
-def phase_20(tmp):
+def sp_eval_dirs(out) -> tuple:
+    """Phase 20 (d)'s experiment: a seeded TEDM head (its backbone seeded
+    too) whose config shards spatially over (1, 2), at batch 2; the same
+    run copied for the one-process eval."""
+    import shutil
+
+    from tedm_tpu_torch.config import config_from_args
+    from tedm_tpu_torch.trainers import datasetdm
+    from tedm_tpu_torch.utils.checkpoint import save_checkpoint
+
+    cfg = config_from_args(["--experiment", "TEDM", "--n_labelled_images", "1", "--batch_size", "2", "--synthetic_data",
+                            "--seed", str(SEED), "--saved_diffusion_model", os.path.join(out, "none"),
+                            "--mesh_shape", "1", "2", *SP_AXES, "--log_dir", os.path.join(out, "eval", "sp")])
+    task = datasetdm.build_task(cfg, "cpu")
+    save_checkpoint(os.path.join(cfg.log_dir, "best"), {k: m.state_dict() for k, m in task.modules.items()}, cfg)
+    one = os.path.join(out, "eval", "one")
+    shutil.copytree(cfg.log_dir, one)
+    return cfg.log_dir, one
+
+
+@contextlib.contextmanager
+def small_eval_sets():
+    """run_tests over the first SP_EVAL_ROWS images of each set."""
+    from tedm_tpu_torch.data.pipeline import Loader
+    from tedm_tpu_torch.eval import run_tests
+
+    build = run_tests.build_test_loaders
+    run_tests.build_test_loaders = lambda config, *a, **k: {
+        n: Loader(v.dataset, config.batch_size, num_workers=1, subset=SP_EVAL_ROWS) for n, v in build(config, *a, **k).items()}
+    try:
+        yield
+    finally:
+        run_tests.build_test_loaders = build
+
+
+def sp_step(key, batch, dp=None) -> dict:
+    """One step of phase 20 (b)-(c) by its key: a backbone path's flags,
+    "TEDM", a CL arm or "finetune"; in one process or on a rank of ``dp``'s
+    mesh. The loss, the gradients and the parameters."""
+    if key in (*SP_CL, "finetune"):
+        return sp_cl_step(key, batch, dp)
+    step = tp_head_step(batch, dp) if key == "TEDM" else tp_backbone_step(batch, key, dp)
+    step.pop("module", None)
+    step.pop("backbone", None)
+    return step
+
+
+def sp_label(key) -> str:
+    if key == "TEDM":
+        return "--use_pallas_groupnorm TEDM head step"
+    if key == "finetune":
+        return "glob_loc_finetune bf16 step"
+    if key in SP_CL:
+        return f"{key} fp32 step"
+    return label_of("--mixed_precision" in key, tuple(f for f in key if f != "--mixed_precision")) + "backbone step"
+
+
+def sp_rank_eval(eval_dir) -> dict:
+    """Phase 20 (d) on a rank: run_tests --multihost over ``eval_dir``."""
+    from tedm_tpu_torch.eval import run_tests
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with small_eval_sets(), contextlib.redirect_stdout(io.StringIO()):
+        run_tests.main(["-e", eval_dir, "--multihost", "--rerun"], device="cuda")
+    torch.cuda.synchronize()
+    return {"counts": read_launches(), "seconds": time.perf_counter() - t0}
+
+
+def sp_eval_one(one_dir) -> dict:
+    """Phase 20 (d)'s one-process run_tests over ``one_dir``: its launches."""
+    from tedm_tpu_torch.eval import run_tests
+
+    reset_launches()
+    with small_eval_sets(), contextlib.redirect_stdout(io.StringIO()):
+        run_tests.main(["-e", one_dir, "--rerun"], device="cuda")
+    return read_launches()
+
+
+def sp_eval_against_one(ranks, sp_dir, one_dir, one_counts) -> tuple:
+    """Phase 20 (d): each npz of the 2-rank run against the one-process
+    run's (``sp_eval_one``)."""
+    from tedm_tpu_torch.eval import harness as H
+
+    errs, metric_errs = {}, {}
+    for key in EVAL_SETS:
+        a = H.load_output(os.path.join(sp_dir, f"{key}_predictions.npz"))
+        b = H.load_output(os.path.join(one_dir, f"{key}_predictions.npz"))
+        if a["y_hat"].shape != b["y_hat"].shape or not np.array_equal(a["y_star"], b["y_star"]):
+            fail(f"phase 20 (d) {key}: the 2-rank npz holds other images than one process's")
+        errs[key] = float(np.abs(a["y_hat"] - b["y_hat"]).max())
+        # NaN (an empty denominator) on both sides agrees, on one side does not
+        diff = lambda m: np.where(np.isnan(a[m]) & np.isnan(b[m]), 0.0, np.nan_to_num(np.abs(a[m] - b[m]), nan=np.inf))
+        metric_errs[key] = max(float(diff(m).max()) for m in ("dice", "precision", "recall"))
+    r0 = ranks[0]["eval"]
+    print(f"phase 20 (d) run_tests of a TEDM head whose config shards spatially, 2 ranks over gloo at 1 x 2 "
+          f"({SP_EVAL_ROWS} images of each set, batch 2, {r0['seconds']:.1f} s on rank 0) against one process: "
+          f"largest probability difference by set {errs} (tol {PATH_TOL}); largest metric difference by set "
+          f"{metric_errs} (tol {SP_METRIC_TOL}); launches on rank 0 {({k: v for k, v in r0['counts'].items() if v})}, "
+          f"one process {({k: v for k, v in one_counts.items() if v})}", flush=True)
+    if max(errs.values()) > PATH_TOL or max(metric_errs.values()) > SP_METRIC_TOL:
+        fail("phase 20 (d): the sharded run_tests disagrees with one process")
+    if r0["counts"] != one_counts or ranks[1]["eval"]["counts"] != one_counts:
+        fail(f"phase 20 (d): launches {r0['counts']} != one process's {one_counts}")
+    return [("TEDM eval SP 1x2 (gloo)", r0["counts"])], {"probability_max_abs_err": errs,
+                                                          "metric_max_abs_err": metric_errs,
+                                                          "rank_seconds": r0["seconds"]}
+
+
+def phase_20(tmp, pair):
     """Phase 20: the spatial mesh axis (--shard_spatial) in a world of one
-    and on 2 gloo ranks."""
+    and on 2 gloo ranks (``pair``, beside the world of one)."""
     import torch.distributed as dist
 
     env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()), "RANK": "0", "WORLD_SIZE": "1",
@@ -3311,10 +3705,13 @@ def phase_20(tmp):
     cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     try:
+        finish_two = sp_two_ranks(tmp, pair)
         runs, report = sp_world_of_one(tmp)
+        runs_c, report["contrastive, world of one"] = sp_cl_world_of_one()
+        runs += runs_c
         if dist.is_initialized():
             dist.destroy_process_group()
-        runs2, report["two ranks (gloo)"] = sp_two_ranks(tmp)
+        runs2, report["two ranks (gloo)"] = finish_two()
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
         if dist.is_initialized():
@@ -3410,21 +3807,25 @@ def main() -> None:
                 step_card_vs_cpu(mixed, flags)
             opt_in.append(("--use_pallas_groupnorm training (b)",
                            train_head(tmp, backbone, False, ("--use_pallas_groupnorm",), HEAD_STEPS)))
-        with Phase("14. eval harness, baseline and PDDM on a corpus of files"):
-            root = export_hard_corpus(tmp)
-            evals, eval_report, base_dir = eval_harness(tmp, backbone, root)
-        with Phase("15. contrastive arms: pretraining, finetunes, eval, serving"):
-            cl_runs, cl_report = contrastive_arms(tmp, root)
-        with Phase("16. samplers and the conditional eval"):
-            cond_runs, cond_report, cond_dir = conditional_chain(tmp, root)
-        with Phase("17. --no_pallas, CUDA graphs, export, the grid, --remat, --profile_dir"):
-            runs17, report17 = phase_17(tmp, served, served16, os.path.dirname(backbone), backbone16, cond_dir)
-        with Phase("18. data parallel in a world of one: DDP and FSDP against no group, layouts, eval"):
-            runs18, report18 = phase_18(tmp, base_dir, root)
-        with Phase("19. the model mesh axis (TP) in a world of one and on 2 gloo ranks, the input backends"):
-            runs19, report19 = phase_19(tmp)
-        with Phase("20. the spatial mesh axis (--shard_spatial) in a world of one and on 2 gloo ranks"):
-            runs20, report20 = phase_20(tmp)
+        pair = RankPair()  # phases 18-20's two ranks reach the card beside phases 14-17
+        try:
+            with Phase("14. eval harness, baseline and PDDM on a corpus of files"):
+                root = export_hard_corpus(tmp)
+                evals, eval_report, base_dir = eval_harness(tmp, backbone, root)
+            with Phase("15. contrastive arms: pretraining, finetunes, eval, serving"):
+                cl_runs, cl_report = contrastive_arms(tmp, root)
+            with Phase("16. samplers and the conditional eval"):
+                cond_runs, cond_report, cond_dir = conditional_chain(tmp, root)
+            with Phase("17. --no_pallas, CUDA graphs, export, the grid, --remat, --profile_dir"):
+                runs17, report17 = phase_17(tmp, served, served16, os.path.dirname(backbone), backbone16, cond_dir)
+            with Phase("18. data parallel in a world of one: DDP and FSDP against no group, layouts, eval"):
+                runs18, report18, plain = phase_18(tmp, base_dir, root, pair)
+            with Phase("19. the model mesh axis (TP) in a world of one and on 2 gloo ranks, the input backends"):
+                runs19, report19 = phase_19(tmp, pair, plain)
+            with Phase("20. the spatial mesh axis (--shard_spatial) in a world of one and on 2 gloo ranks"):
+                runs20, report20 = phase_20(tmp, pair)
+        finally:
+            pair.close()
 
     paths = add_paths(("serving", served["launches"]), ("training (a)", a32), ("training (b)", b32),
                       ("bf16 serving", served16["launches"]), ("bf16 training (a)", a16),

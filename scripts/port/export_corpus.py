@@ -98,8 +98,8 @@ def export_cxr14(root: str, img_size: int, seed: int, n: int, hard: bool = False
     print(f"CXR14: {n} images")
 
 
-def export_crossdomain(root: str, img_size: int, seed: int, hard: bool = False) -> None:
-    n = 100  # the reference sizes of both sets
+def export_crossdomain(root: str, img_size: int, seed: int, hard: bool = False, n: int = 100) -> None:
+    """NIH and Montgomery, ``n`` images each (100: the reference sizes of both sets)."""
     # NIH: one merged mask a scan (reference csv cols scan, mask)
     base = os.path.join(root, "NIH")
     os.makedirs(os.path.join(base, "scans"), exist_ok=True)
@@ -142,13 +142,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--img_size", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n_cxr", type=int, default=512)
+    ap.add_argument("--n_crossdomain", type=int, default=100, help="images of NIH and of Montgomery each")
     ap.add_argument("--hard", action="store_true",
                     help="the hard corpus: weak contrast, soft boundaries, bias fields, occluders")
     args = ap.parse_args(argv)
     os.makedirs(os.path.join(args.root, "data"), exist_ok=True)
     export_jsrt(args.root, args.img_size, args.seed, hard=args.hard)
     export_cxr14(args.root, args.img_size, args.seed, args.n_cxr, hard=args.hard)
-    export_crossdomain(args.root, args.img_size, args.seed, hard=args.hard)
+    export_crossdomain(args.root, args.img_size, args.seed, hard=args.hard, n=args.n_crossdomain)
     print(f"exported to {args.root}")
 
 

@@ -26,7 +26,13 @@ of ``tedm_tpu/eval/harness.py``; reference: auxiliary/postprocessing/run_tests.p
   number of ranks are those of one. On a mesh with a ``model`` axis the
   rows are split over the data group, and under ``--param_sharding tp``
   the modules go through the ``tp`` rule, as JAX puts params and
-  batch_stats through it (tedm_tpu/eval/run_tests.py:66-69).
+  batch_stats through it (tedm_tpu/eval/run_tests.py:66-69). Under
+  ``--shard_spatial`` each rank of a spatial group predicts its rows of H
+  of its images (``parallel/spatial.py``), every noise drawn whole and cut:
+  the predictions stay this rank's rows until ``compute_output``, which
+  adds each image's counts over the row shards for its metrics and
+  gathers the images along H, so that the npz files and the metrics are
+  one process's.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ from tedm_tpu_torch.config import Config
 from tedm_tpu_torch.data.datasets import MonDataset, NIHDataset, SyntheticCXRDataset
 from tedm_tpu_torch.data.pipeline import Loader, build_dataloaders
 from tedm_tpu_torch.ops import metrics as M
-from tedm_tpu_torch.parallel import mesh, tensor_parallel
+from tedm_tpu_torch.parallel import mesh, spatial, tensor_parallel
 from tedm_tpu_torch.trainers.common import to_nchw
 from tedm_tpu_torch.utils.checkpoint import checkpoint_exists, load_checkpoint, load_config
 from tedm_tpu_torch.utils.device import resolve_device
@@ -125,29 +131,31 @@ def build_test_loaders(
     return out
 
 
-def eval_parallel_setup(config: Config, modules: Iterable[torch.nn.Module] = ()) -> Optional[Tuple[int, int]]:
+def eval_parallel_setup(
+    config: Config, modules: Iterable[torch.nn.Module] = ()
+) -> Tuple[Optional[Tuple[int, int]], Optional[spatial.Plan]]:
     """(data rank, data ranks) when the ranks of a data-parallel run share
     each batch of ``config.batch_size`` rows, else None (one rank, or a
     batch the data ranks do not divide: every rank then predicts every
     row), as JAX's wiring is the identity on one device or an indivisible
-    batch. With a process group it builds ``config``'s mesh, and under
-    ``--param_sharding tp`` shards ``modules`` over its model group. A
-    ``--shard_spatial`` run's config on more than one rank, which JAX's
-    eval would shard spatially, is refused (ROADMAP item A.5h)."""
+    batch; and the spatial plan of the batches under ``--shard_spatial``
+    (``spatial.plan_for`` of ``config.img_size`` rows), else None. With a
+    process group it builds ``config``'s mesh, and under
+    ``--param_sharding tp`` shards ``modules`` over its model group."""
     if not mesh.active():
-        return None
+        return None, None
     mesh.check_config(config)
-    if config.shard_spatial and mesh.world() > 1:
-        raise NotImplementedError("--shard_spatial (spatial sharding) is not ported yet for the eval CLIs: "
-                                  "ROADMAP item A.5h")
     mesh.make_mesh(tuple(config.mesh_shape), tuple(config.mesh_axes))
     n = mesh.data_world()
     if config.batch_size % n:
-        return None
+        return None, None
     if config.param_sharding == "tp":
         for module in modules:
             tensor_parallel.shard(module, mesh.model_plan(), config.tp_min_width)
-    return (mesh.data_rank(), n) if n > 1 else None
+    plan = None
+    if config.shard_spatial:
+        plan = spatial.plan_for(mesh.spatial_plan(), config.img_size, len(config.dim_mults) - 1)
+    return ((mesh.data_rank(), n) if n > 1 else None), plan
 
 
 def _rows(shard: Optional[Tuple[int, int]], b: int) -> Optional[slice]:
@@ -208,7 +216,7 @@ def make_conditional_sampler(config: Config, unet: torch.nn.Module, sched) -> Ca
         kw = dict(objective=config.objective, dynamic_threshold_percentile=config.dynamic_threshold_percentile)
         if config.ddim_steps > 0:
             if rows is not None and x_T is None:  # the only draw at eta 0
-                x_T = torch.randn(shape, generator=generator, device=sched.alphas_cumprod.device)[rows]
+                x_T = spatial.randn(shape, generator, sched.alphas_cumprod.device, torch.float32)[rows]
             x0 = ddim_sample_loop(apply_fn, sched, tuple(cond.shape[:1]) + shape[1:], generator,
                                   num_steps=config.ddim_steps, x_T=x_T, noises=noises, **kw)
         else:
@@ -228,6 +236,7 @@ def predict_conditional_dataset(
     run_once: Optional[Callable[..., torch.Tensor]] = None,
     draws: Optional[Iterable[Tuple[torch.Tensor, Optional[Sequence[torch.Tensor]]]]] = None,
     shard: Optional[Tuple[int, int]] = None,
+    plan: Optional[spatial.Plan] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """The reference's costliest inference (run_tests.py:121-137): per batch,
     the mean of ``n_runs`` trajectories of the segmentation conditioned on
@@ -235,7 +244,9 @@ def predict_conditional_dataset(
     ``draws`` gives each run's (x_T, DDIM noises), NCHW, batch by batch;
     else they come from ``generator``. Pass a ``run_once`` built once
     (``make_conditional_sampler``) when evaluating several sets. ``shard``
-    (``eval_parallel_setup``) splits each batch's rows over the ranks."""
+    (``eval_parallel_setup``) splits each batch's rows over the ranks;
+    under its spatial ``plan`` the predictions are this rank's rows of H
+    (``compute_output`` gathers them) and the masks whole."""
     run_once = run_once or make_conditional_sampler(config, unet, sched)
     dev = next(unet.parameters()).device
     draws = None if draws is None else iter(draws)
@@ -245,14 +256,18 @@ def predict_conditional_dataset(
         b = cond.shape[0]
         rows = _rows(shard, b)
         runs = []
-        for _ in range(n_runs):
-            x_T, noises = next(draws) if draws is not None else (None, None)
-            if rows is None:
-                runs.append(run_once(cond, generator, x_T, noises))
-            else:
-                cut = lambda a: None if a is None else a[rows]
-                runs.append(run_once(cond[rows], generator, cut(x_T),
-                                     None if noises is None else [cut(z) for z in noises], rows, b))
+        with spatial.sharded(plan):
+            cond = spatial.local_rows(cond)
+            h_rows = lambda a: None if a is None else spatial.local_rows(a.to(dev))
+            for _ in range(n_runs):
+                x_T, noises = next(draws) if draws is not None else (None, None)
+                x_T, noises = h_rows(x_T), None if noises is None else [h_rows(z) for z in noises]
+                if rows is None:
+                    runs.append(run_once(cond, generator, x_T, noises))
+                else:
+                    cut = lambda a: None if a is None else a[rows]
+                    runs.append(run_once(cond[rows], generator, cut(x_T),
+                                         None if noises is None else [cut(z) for z in noises], rows, b))
         pred = torch.stack(runs).mean(dim=0)
         if rows is not None:
             pred = mesh.gather_rows(pred)
@@ -284,12 +299,15 @@ def predict_dataset(
     fwd: Optional[Callable[..., torch.Tensor]] = None,
     noise: Optional[Iterable[np.ndarray]] = None,
     shard: Optional[Tuple[int, int]] = None,
+    plan: Optional[spatial.Plan] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Sigmoid predictions over a loader: (y_hat, y_star), NHWC numpy, the
     padding rows dropped; y_hat is (fold, N, H, W, C), step-major, when
     fold > 1. The feature noise comes from ``generator``, or from ``noise``:
     one NHWC array a batch (B rows, or S*B step-major). ``shard``
-    (``eval_parallel_setup``) splits each batch's rows over the ranks."""
+    (``eval_parallel_setup``) splits each batch's rows over the ranks;
+    under its spatial ``plan`` each rank predicts its rows of H, y_hat is
+    those rows (``compute_output`` gathers them) and y_star whole."""
     dev = next(task.trained.parameters()).device
     fwd = fwd or make_predict_fn(task)
     noise = None if noise is None else iter(noise)
@@ -299,14 +317,15 @@ def predict_dataset(
         x = to_nchw(batch["image"], dev)
         n = None if noise is None else to_nchw(next(noise), dev)
         rows = _rows(shard, x.shape[0])
-        if rows is None:
-            pred = fwd(x, generator, n)
-        else:
-            if n is None and steps:  # extract_features' draw, for the whole batch
-                n = torch.randn((steps * x.shape[0], *x.shape[1:]), generator=generator, device=dev)
-            if n is not None:
-                n = _step_rows(n, n.shape[0] // x.shape[0], rows)
-            pred = _gather_step_major(fwd(x[rows], generator, n), fold)
+        with spatial.sharded(plan):
+            if rows is None:
+                pred = fwd(spatial.local_rows(x), generator, None if n is None else spatial.local_rows(n))
+            else:
+                if n is None and steps:  # extract_features' draw, for the whole batch
+                    n = torch.randn((steps * x.shape[0], *x.shape[1:]), generator=generator, device=dev)
+                if n is not None:
+                    n = spatial.local_rows(_step_rows(n, n.shape[0] // x.shape[0], rows))
+                pred = _gather_step_major(fwd(spatial.local_rows(x[rows]), generator, n), fold)
         pred = pred.permute(0, 2, 3, 1).cpu().numpy()
         nvalid = int(batch["valid"].sum())
         b = len(batch["valid"])
@@ -316,18 +335,24 @@ def predict_dataset(
     return np.concatenate(y_hats, axis=1 if fold > 1 else 0), np.concatenate(y_stars, axis=0)
 
 
-def compute_output(y_hat: np.ndarray, y_star: np.ndarray) -> Dict[str, np.ndarray]:
+def compute_output(y_hat: np.ndarray, y_star: np.ndarray, plan: Optional[spatial.Plan] = None,
+                   device: Union[str, torch.device] = "cpu") -> Dict[str, np.ndarray]:
     """The saved artifact (reference: run_tests.py:150-156): NHWC y_hat and
-    y_star, and per-image (N, C) Dice, precision and recall of y_hat > 0.5."""
-    nchw = lambda a: torch.from_numpy(np.ascontiguousarray(np.moveaxis(a, -1, 1)))
-    pred, target = nchw(y_hat > 0.5), nchw(y_star)
-    return {
-        "y_hat": y_hat,
-        "y_star": y_star,
-        "dice": M.dice(pred, target).numpy(),
-        "precision": M.precision(pred, target).numpy(),
-        "recall": M.recall(pred, target).numpy(),
-    }
+    y_star, and per-image (N, C) Dice, precision and recall of y_hat > 0.5.
+    Under a spatial ``plan`` (``eval_parallel_setup``) y_hat is this rank's
+    rows of H and y_star whole: the metrics add each image's counts over
+    the row shards (``spatial.spatial_sum``), and the artifact holds y_hat
+    gathered along H, on every rank; the reductions run on ``device``, the
+    process group's."""
+    nchw = lambda a: torch.from_numpy(np.ascontiguousarray(np.moveaxis(a, -1, 1))).to(device)
+    pred = nchw(y_hat > 0.5)
+    with spatial.sharded(plan):
+        target, total = spatial.local_rows(nchw(y_star)), spatial.spatial_sum
+        out = {name: fn(pred, target, total).cpu().numpy()
+               for name, fn in (("dice", M.dice), ("precision", M.precision), ("recall", M.recall))}
+        if plan is not None:
+            y_hat = np.moveaxis(spatial.gather_h(nchw(y_hat)).cpu().numpy(), 1, -1)
+        return {"y_hat": y_hat, "y_star": y_star, **out}
 
 
 def print_metrics(name: str, output: Dict[str, np.ndarray]) -> None:

@@ -16,7 +16,12 @@ sampling chain: the mean of 5 trajectories conditioned on each image, by
 DDIM under ``--ddim_steps`` > 0 (the checkpoint config's, unless the flag
 is given here), else by the full ancestral loop (run_tests.py:121-137). The noise comes from a generator seeded with
 ``config.seed + 777``. Under ``--multihost`` the ranks share each batch
-(``harness.eval_parallel_setup``) and rank 0 writes.
+(``harness.eval_parallel_setup``: its rows over the data ranks, its rows of
+H over the spatial ranks of a ``--shard_spatial`` run's mesh) and rank 0
+writes.
+
+    torchrun --nproc_per_node 2 -m tedm_tpu_torch.eval.run_tests --multihost -e <dir of a run
+        trained with --mesh_shape 1 2 --mesh_axes data spatial --shard_spatial>
 """
 
 from __future__ import annotations
@@ -80,7 +85,7 @@ def evaluate_experiment(
         fwd = make_predict_fn(task)
     loaders = build_test_loaders(config, nih_path, mon_path)
     generator = torch.Generator(device=dev).manual_seed(config.seed + 777)
-    shard = eval_parallel_setup(config, (unet,) if conditional else task.modules.values())
+    shard, plan = eval_parallel_setup(config, (unet,) if conditional else task.modules.values())
 
     for key, loader in loaders.items():
         path = os.path.join(exp_dir, f"{key}_predictions.npz")
@@ -93,12 +98,12 @@ def evaluate_experiment(
         print(f"Testing {key} set")
         if conditional:
             y_hat, y_star = predict_conditional_dataset(config, unet, sched, loader, generator, run_once=run_once,
-                                                        shard=shard)
+                                                        shard=shard, plan=plan)
         else:
-            y_hat, y_star = predict_dataset(task, loader, generator, fold=task.fold, fwd=fwd, shard=shard)
+            y_hat, y_star = predict_dataset(task, loader, generator, fold=task.fold, fwd=fwd, shard=shard, plan=plan)
             if task.fold > 1:
                 y_hat = y_hat.mean(axis=0)  # ensemble over timesteps (app.py:79)
-        out = compute_output(y_hat, y_star)
+        out = compute_output(y_hat, y_star, plan, dev)
         print_metrics(key, out)
         if mesh.rank() == 0:
             save_output(path, out)

@@ -12,7 +12,9 @@ every t of the checkpoint's ``t_steps_to_save``, and the ensembled
 thresholded at 0.5 in the metrics), with the reference's printing. The
 feature noise comes from a generator seeded with ``config.seed + 778``.
 Under ``--multihost`` the ranks share each batch
-(``harness.eval_parallel_setup``) and rank 0 writes.
+(``harness.eval_parallel_setup``: its rows over the data ranks, its rows of
+H over the spatial ranks of a ``--shard_spatial`` run's mesh) and rank 0
+writes.
 """
 
 from __future__ import annotations
@@ -61,7 +63,7 @@ def evaluate_shared_weights(
     fwd = make_predict_fn(task)
     loaders = build_test_loaders(config, nih_path, mon_path)
     generator = torch.Generator(device=dev).manual_seed(config.seed + 778)
-    shard = eval_parallel_setup(config, task.modules.values())
+    shard, plan = eval_parallel_setup(config, task.modules.values())
     writes = mesh.rank() == 0
     results = {}
 
@@ -70,15 +72,15 @@ def evaluate_shared_weights(
             print(f"{key} already tested")
             continue
         print(f"Testing {key} set")
-        y_hats, y_star = predict_dataset(task, loader, generator, fold=task.fold, fwd=fwd, shard=shard)
+        y_hats, y_star = predict_dataset(task, loader, generator, fold=task.fold, fwd=fwd, shard=shard, plan=plan)
         # y_hats (S, N, H, W, C), step-major as the reference's rearrange
         # '(b step) 1 h w -> step b 1 h w' (testing_shared_weights.py:120)
         for i, t in enumerate(config.t_steps_to_save):
-            out = compute_output(y_hats[i], y_star)
+            out = compute_output(y_hats[i], y_star, plan, dev)
             print_metrics(f"{key} {t}", out)
             if writes:
                 save_output(os.path.join(exp_dir, f"{key}_timestep{t}_predictions.npz"), out)
-        ens = compute_output(y_hats.mean(axis=0), y_star)
+        ens = compute_output(y_hats.mean(axis=0), y_star, plan, dev)
         print_metrics(key, ens)
         if writes:
             save_output(os.path.join(exp_dir, f"{key}_predictions.npz"), ens)

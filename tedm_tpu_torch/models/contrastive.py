@@ -13,6 +13,14 @@ keys are therefore exactly what a finetune copies into a full ``Unet``
 ``load_state_dict(strict=False)``. Both compute in fp32, as the JAX
 trainers build them (no ``dtype``). The heads' convs and denses are the
 UNet's ``Conv2d`` and ``Linear``, which take a TP plan as the UNet's do.
+
+Under spatial parallelism (``parallel/spatial.py``) the input is this
+rank's rows of the views and the UNet runs on them; both models return
+whole maps, gathered along H (``spatial.gather_h``): GlobalCL's head
+flattens the whole mid map, and LocalCL's 3x3 boxes, which can lie on any
+rank or straddle two, are cut from the whole decoder map. LocalCL's g2 runs
+on this rank's rows before the gather, its BatchNorm summing over the data
+x spatial ranks (``flax_batch_norm``).
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from torch import nn
 
 from tedm_tpu_torch.models.segmentation import flax_batch_norm
 from tedm_tpu_torch.models.unet import Conv2d, Linear, ResnetBlock, Unet
+from tedm_tpu_torch.parallel import spatial
 
 
 def pruned_unet(n_up_stages: int, **unet_kw) -> Unet:
@@ -46,7 +55,8 @@ class GlobalCL(nn.Module):
     """UNet encoder + mid + the global head g1: flatten -> Linear(1024, no
     bias) -> ReLU -> Linear(128, no bias) (reference:
     models/global_local_cl.py:8-50). The flatten is NCHW's, (C, H, W);
-    ``utils.convert`` permutes the JAX kernel's NHWC rows to it."""
+    ``utils.convert`` permutes the JAX kernel's NHWC rows to it. Under a
+    spatial plan the head takes the mid map gathered along H."""
 
     def __init__(
         self,
@@ -66,7 +76,7 @@ class GlobalCL(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, _, _ = self.unet.encode(x, None)
-        x = self.unet.run_mid(x, None)
+        x = spatial.gather_h(self.unet.run_mid(x, None))
         return self.g1_fc2(F.relu(self.g1_fc1(x.reshape(x.shape[0], -1))))
 
 
@@ -75,7 +85,9 @@ class LocalCL(nn.Module):
     g2: Conv1x1(no bias) -> ReLU -> BatchNorm -> Conv1x1(no bias) (reference:
     models/global_local_cl.py:53-107). The BatchNorm runs as flax's
     (``flax_batch_norm``: momentum 0.9, the biased batch variance) in train
-    mode, on its running statistics in eval mode."""
+    mode, on its running statistics in eval mode. The output is the whole
+    map: under a spatial plan g2 runs on this rank's rows, then the map is
+    gathered along H."""
 
     def __init__(
         self,
@@ -99,7 +111,7 @@ class LocalCL(nn.Module):
         x, r, hs = self.unet.encode(x, None)
         x = self.unet.run_mid(x, None)
         x, _ = self.unet.decode(x, r, hs, None, n_stages=self.l)
-        return self.g2_conv2(flax_batch_norm(self.g2_bn, F.relu(self.g2_conv1(x))))
+        return spatial.gather_h(self.g2_conv2(flax_batch_norm(self.g2_bn, F.relu(self.g2_conv1(x)))))
 
 
 def global_nt_xent(features: torch.Tensor, batch_size: int, tau: float) -> torch.Tensor:

@@ -25,7 +25,9 @@ promotes to fp32 in PyTorch as in JAX.
 
 Under spatial parallelism (``parallel/spatial.py``) the losses take this
 rank's rows of the images: their noise is drawn for the whole map and cut
-to them, and each image's mean over its pixels adds the ranks' sums.
+to them, and each image's mean over its pixels adds the ranks' sums. The
+samplers draw alike, and dynamic thresholding takes the quantile of the
+whole image.
 """
 
 from __future__ import annotations
@@ -50,9 +52,9 @@ def unnormalize_to_zero_to_one(x: torch.Tensor) -> torch.Tensor:
 
 
 def _randn(shape: Sequence[int], like: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
-    if generator is None:
-        raise ValueError("need a generator or the noise itself")
-    return torch.randn(tuple(shape), generator=generator, device=like.device, dtype=like.dtype)
+    """Noise of ``like``'s device and dtype for a map of ``shape`` (this
+    rank's rows under a spatial plan, drawn whole and cut)."""
+    return spatial.randn(shape, generator, like.device, like.dtype)
 
 
 def q_sample(
@@ -113,8 +115,9 @@ def _quantile_via_topk(flat: torch.Tensor, percentile: float) -> torch.Tensor:
 def dynamic_threshold(x_0: torch.Tensor, percentile: float) -> torch.Tensor:
     """Imagen dynamic thresholding (reference: models/diffusion_model.py:224-231):
     clip to the per-sample ``percentile`` quantile of |x_0| (floored at 1)
-    and rescale into [-1, 1]."""
-    flat = x_0.reshape(x_0.shape[0], -1).abs().float()
+    and rescale into [-1, 1]. Under a spatial plan the quantile is the
+    whole image's (``spatial.gather_h``)."""
+    flat = spatial.gather_h(x_0).reshape(x_0.shape[0], -1).abs().float()
     if percentile * (flat.shape[1] - 1) >= flat.shape[1] / 2:
         s = _quantile_via_topk(flat, percentile)
     else:
@@ -198,7 +201,7 @@ def sample_loop_with_snapshots(
     stepsize = max(T // n_snapshots, 1)
     dev = generator.device
     cut = (lambda a: a) if rows is None else (lambda a: a[rows])
-    x = cut(torch.randn(shape, generator=generator, device=dev, dtype=dtype))
+    x = cut(spatial.randn(shape, generator, dev, dtype))
     snaps = torch.zeros((n_snapshots, *x.shape), device=dev, dtype=dtype)
     for t_scalar in range(T - 1, -1, -1):
         t = torch.full((x.shape[0],), t_scalar, dtype=torch.long, device=dev)
@@ -293,7 +296,7 @@ def ddim_sample_loop(
     Returns the sample in [-1, 1]."""
     steps = coefficients if coefficients is not None else ddim_coefficients(sched, num_steps, eta)
     dev = sched.alphas_cumprod.device
-    x = x_T if x_T is not None else torch.randn(shape, generator=generator, device=dev, dtype=dtype)
+    x = x_T if x_T is not None else spatial.randn(shape, generator, dev, dtype)
     for i, (t, t_prev, c_x0, c_dir, sigma) in enumerate(steps):
         tb = torch.full((shape[0],), t, dtype=torch.long, device=dev)
         _, x_0 = model_predictions(apply_fn, sched, x, tb, objective)

@@ -49,6 +49,12 @@ device, so here a rank plays the part of one JAX host with one device:
   pixel group, and DDP averages over it. Each rank still back-propagates
   the data axis's size times its share of the loss: the spatial reductions
   hand each rank S times its rows' part of the gradient (``spatial.py``).
+* Any other axis name (``--mesh_shape 2 2 --mesh_axes data replica``), as
+  JAX's ``make_mesh`` takes any: nothing shards over it, so its ranks are
+  replicas, which read the same rows, draw alike and compute the same
+  values, and which no reduction group holds. A mesh without a ``data``
+  axis is refused on more than one rank, in JAX's words (its batch
+  sharding names ``data``).
 
 Without a process group (one process, no ``--multihost``) every function
 here is the identity, and the trainers run exactly as on one device.
@@ -211,7 +217,8 @@ def init_multihost(device: Union[str, torch.device] = "cuda") -> torch.device:
 
 
 class Mesh(NamedTuple):
-    """The port's mesh: its shape and axis names (``data``, ``model``, ``spatial``)."""
+    """The port's mesh: its shape and axis names (``data``, ``model``,
+    ``spatial`` and any other, whose ranks are replicas)."""
 
     shape: tuple
     axis_names: tuple
@@ -220,14 +227,15 @@ class Mesh(NamedTuple):
 def make_mesh(mesh_shape: Sequence[int] = (), mesh_axes: Sequence[str] = ("data",),
               n_devices: Optional[int] = None) -> Mesh:
     """JAX's ``make_mesh`` checks over the ranks (tedm_tpu/parallel/mesh.py:44-79):
-    an empty shape takes every rank on ``data``; a shape that needs more
+    an empty shape takes every rank on one axis, named by the first of
+    ``mesh_axes`` (``data`` when there is none); a shape that needs more
     devices than there are ranks, or (with more than one rank) fewer, is an
     error in JAX's words. Over the ranks of a process group (``n_devices``
     None) it also builds the mesh's data, model and spatial groups, once
     per mesh."""
     n_dev = world() if n_devices is None else n_devices
     if not mesh_shape:
-        m = Mesh((n_dev,), ("data",))
+        m = Mesh((n_dev,), axis_names((), mesh_axes))
     else:
         if len(mesh_shape) != len(mesh_axes):
             raise ValueError(f"mesh_shape {tuple(mesh_shape)} and mesh_axes {tuple(mesh_axes)} differ in length")
@@ -245,6 +253,13 @@ def make_mesh(mesh_shape: Sequence[int] = (), mesh_axes: Sequence[str] = ("data"
     return m
 
 
+def axis_names(mesh_shape: Sequence[int], mesh_axes: Sequence[str]) -> tuple:
+    """The mesh's axis names as JAX's ``make_mesh`` keeps them: all of
+    ``mesh_axes`` under a shape, the first alone under an empty one
+    (tedm_tpu/parallel/mesh.py:60-61)."""
+    return tuple(mesh_axes) if mesh_shape else (tuple(mesh_axes[:1]) or ("data",))
+
+
 def _groups_along(ranks: np.ndarray, axes: Sequence[Optional[int]]) -> List[List[int]]:
     """The rank lists of the lines of ``ranks`` along ``axes`` together (each
     rank alone when the mesh has none of them)."""
@@ -258,13 +273,14 @@ def _groups_along(ranks: np.ndarray, axes: Sequence[Optional[int]]) -> List[List
 def _use(m: Mesh) -> None:
     """Build ``m``'s data, model and spatial groups (and the data x spatial
     one) over the default group, unless they are built; every rank calls it
-    alike (``new_group`` is a collective). Without a model or spatial axis
-    the data group is the default one."""
+    alike (``new_group`` is a collective). On a mesh of the data axis alone
+    the data group is the default one; the ranks along any other axis are
+    replicas, in none of these groups."""
     global _axes
     key = (m.shape, m.axis_names, dist.group.WORLD)
     if _axes is not None and _axes.key == key:
         return
-    if "model" not in m.axis_names and "spatial" not in m.axis_names:
+    if m.axis_names == ("data",):
         _axes = _Axes(key, None, None, world(), rank(), 1, 0)
         return
     ranks = np.arange(world()).reshape(m.shape)
@@ -380,8 +396,8 @@ def host_sum(values: Sequence[float]) -> List[float]:
 
 def rows_seen(n: int) -> float:
     """The rows that the data ranks read, from each rank's ``n`` (the ranks
-    of a model or spatial group read the same rows)."""
-    return host_sum([n])[0] / (model_world() * spatial_world())
+    of a model or spatial group, and replicas, read the same rows)."""
+    return host_sum([n])[0] * data_world() / world()
 
 
 def host_any(flag: bool) -> bool:
@@ -640,16 +656,20 @@ SP_COMPOSES = ("--shard_spatial composes only with replicated params and a "
 def check_config(config) -> None:
     """JAX's refusals, in its words: ``tp`` without a ``model`` axis
     (tedm_tpu/parallel/mesh.py:181-185); and, where JAX's wiring runs past
-    its one-device return (mesh.py:177-179: more than one rank here),
-    ``--shard_spatial`` without a ``spatial`` axis, or with ``tp``,
-    ``fsdp`` or a second spatial axis (mesh.py:186-212). The mesh's axis
-    names are JAX's ``make_mesh``'s: the first one alone under an empty
-    shape."""
-    if config.param_sharding == "tp" and "model" not in tuple(config.mesh_axes):
+    its one-device return (mesh.py:177-179: more than one rank here), a
+    mesh without a ``data`` axis (its batch sharding, mesh.py:225, names
+    one), and ``--shard_spatial`` without a ``spatial`` axis, or with
+    ``tp``, ``fsdp`` or a second spatial axis (mesh.py:186-212). The mesh's
+    axis names are JAX's ``make_mesh``'s (``axis_names``)."""
+    axes = axis_names(config.mesh_shape, config.mesh_axes)
+    if config.param_sharding == "tp" and "model" not in axes:
         raise ValueError(TP_NEEDS_MODEL)
-    if not config.shard_spatial or world() <= 1:
+    if world() <= 1:
         return
-    axes = tuple(config.mesh_axes) if config.mesh_shape else (tuple(config.mesh_axes[:1]) or ("data",))
+    if "data" not in axes:
+        raise ValueError(f"Resource axis: data of PartitionSpec('data',) is not found in mesh: {axes}.")
+    if not config.shard_spatial:
+        return
     if "spatial" not in axes:
         raise ValueError(SP_NEEDS_AXIS)
     if config.param_sharding in ("tp", "fsdp") or "spatial2" in axes:

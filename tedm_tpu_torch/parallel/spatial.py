@@ -11,7 +11,8 @@ the group, and the UNet (``models/unet.py``) reads the ``Plan`` that
 ``sharded`` makes current:
 
 * a convolution of more than one row (3x3 pad 1, the 7x7 ``init_conv``, the
-  4x4 stride-2 downsample) takes ``halo`` rows of its neighbours first and
+  4x4 stride-2 downsample) takes ``halo`` rows of its neighbours first (of
+  the whole map where a rank holds fewer rows than the halo reaches) and
   convolves with no row padding; 1x1 convolutions, the nearest upsample and
   ChanLayerNorm (over channels) stay local;
 * GroupNorm's sums and sums of squares per (sample, group), and the losses'
@@ -23,8 +24,14 @@ the group, and the UNet (``models/unet.py``) reads the ``Plan`` that
 The shape rule (``plan_for``): a batch whose H the spatial axis does not
 divide is not sharded, as in JAX; one that it divides must split evenly at
 every stage of the UNet (each downsample halves the rows, and a 4x4
-stride-2 conv needs an even number of them) and keep at least 3 rows for
-the 7x7 conv's halo, else it is refused.
+stride-2 conv needs an even number of them), else it is refused. JAX's only
+condition is the first (tedm_tpu/parallel/mesh.py:244-247), but where a
+stage does not split evenly its partitioner is not right either: at 32^2
+over 8 row shards with 3 downsamples (4 rows a rank, so 4 rows of the
+deepest stage over 8 shards) its loss matches one device's, but its
+gradients of the second conv's kernel (``block2``) of every ResnetBlock of
+the 4^2 stage are exactly twice one device's, so the port refuses such
+shapes rather than train to a wrong reference.
 
 Every rank of a spatial group computes the same values of what has no H
 axis (the time embedding, FiLM, the per-image losses). Each ``spatial_sum``
@@ -91,16 +98,18 @@ def plan_for(p: Optional[Plan], height: int, depth: int) -> Optional[Plan]:
     UNet with ``depth`` downsamples: ``p`` when its size divides ``height``
     (JAX's input rule), None when it does not (every rank of the group then
     computes the whole map, as JAX leaves such a batch unsharded). A batch
-    that ``p`` divides but whose rows do not split evenly at every stage,
-    or leave fewer than 3 rows a rank, is refused."""
+    that ``p`` divides but whose rows do not split evenly at every stage is
+    refused (the module docstring gives a shape where JAX's gradients are
+    wrong)."""
     if p is None or p.size == 1 or height % p.size:
         return None
     rows = height // p.size
-    if rows % 2 ** depth or rows < 3:
+    if rows % 2 ** depth:
         raise ValueError(
             f"--shard_spatial: {height} rows over a spatial axis of {p.size} leave {rows} a rank; every stage "
-            f"of a UNet with {depth} downsamples must split evenly (rows a rank divisible by {2 ** depth}) and "
-            "keep at least 3 rows for the 7x7 conv's halo"
+            f"of a UNet with {depth} downsamples must split evenly (rows a rank divisible by {2 ** depth}); JAX's "
+            "partitioner runs such a batch, but at 32^2 over 8 row shards its gradients of the deepest stage's "
+            "block2 convs are twice one device's"
         )
     return p
 
@@ -195,9 +204,13 @@ def halo(x: torch.Tensor, above: int, below: int) -> torch.Tensor:
     map's edges: a conv with no row padding over it gives this rank's rows
     of the row-padded conv of the whole map. The backward sends each halo
     row's gradient back to the rank that holds the row and adds it there.
-    ``x`` itself without a plan."""
+    Where this rank holds fewer rows than the halo reaches, the halo rows
+    come from the whole map (``gather_h``). ``x`` itself without a plan."""
     if _plan is None:
         return x
+    h = x.shape[2]
+    if h < max(above, below):
+        return F.pad(gather_h(x), (0, 0, above, below))[:, :, _plan.index * h:_plan.index * h + h + above + below]
     return _Halo.apply(x, _plan, above, below)
 
 

@@ -7,11 +7,8 @@
 
 The flags are the JAX package's (``tedm_tpu_torch.config.build_parser``).
 Training runs on the card; ``main(argv, device="cpu")`` runs the plain
-PyTorch path on the CPU. The flags whose features the port does not have
-yet (spatial sharding of the contrastive arms, a mesh axis other than
-``data``, ``model`` and ``spatial``: ROADMAP item A.5h) raise
-``NotImplementedError`` naming their item; the combinations JAX refuses
-raise JAX's error, where JAX raises it.
+PyTorch path on the CPU. The combinations JAX refuses raise JAX's error,
+where JAX raises it.
 
 Data parallel (``parallel/mesh.py``): one process per card, launched by
 torchrun with ``--multihost``; ``--batch_size`` is per rank, so the global
@@ -28,14 +25,15 @@ same rows:
         --mesh_shape 4 2 --mesh_axes data model --param_sharding tp \
         [--tp_min_width 256] --experiment img_only ...
 
-Spatial parallel over a ``spatial`` axis (``parallel/spatial.py``; the
-UNet trainers: the four diffusion experiments, LEDM, LEDMe, TEDM, baseline
-and PDDM): D data ranks times S spatial ranks, the ranks of one spatial
+Spatial parallel over a ``spatial`` axis (``parallel/spatial.py``; every
+experiment): D data ranks times S spatial ranks, the ranks of one spatial
 group reading the same rows, each holding its H / S rows of every map:
 
     torchrun --nproc_per_node 8 -m tedm_tpu_torch.train --multihost \
         --mesh_shape 4 2 --mesh_axes data spatial --shard_spatial \
         --experiment img_only ...
+
+A mesh axis of any other name holds replicas (``parallel/mesh.py``).
 
 ``--data_backend device`` renders the synthetic images on the card
 (``data/device_synthetic.py``, needs ``--synthetic_data``); ``grain`` reads
@@ -55,16 +53,6 @@ from tedm_tpu_torch.utils.device import strict_fp32
 
 DIFFUSION_EXPERIMENTS = ("img_only", "joint", "conditional", "joint_and_cond")
 HEAD_EXPERIMENTS = ("LEDM", "LEDMe", "TEDM")
-
-CONTRASTIVE_EXPERIMENTS = ("global_cl", "local_cl", "global_finetune", "glob_loc_finetune")
-
-# (flag, is it set, the ROADMAP item that ports its feature): spatial
-# sharding of the contrastive arms (their global pooling and box crops cross
-# the row shards), and any mesh axis but 'data', 'model' and 'spatial'
-NOT_PORTED = (
-    ("--shard_spatial", lambda c: c.shard_spatial and c.experiment in CONTRASTIVE_EXPERIMENTS, "A.5h"),
-    ("--mesh_axes", lambda c: any(a not in ("data", "model", "spatial") for a in c.mesh_axes), "A.5h"),
-)
 
 
 def dispatch(config: Config, device: Union[str, torch.device] = "cuda") -> None:
@@ -93,10 +81,6 @@ def dispatch(config: Config, device: Union[str, torch.device] = "cuda") -> None:
     if config.multihost:
         device = mesh.init_multihost(device)
     mesh.check_config(config)  # after the group: JAX refuses spatial sharding on more than one device only
-    for flag, is_set, item in NOT_PORTED:
-        if is_set(config):
-            raise NotImplementedError(f"{flag} (spatial sharding) is not ported yet for {config.experiment}: "
-                                      f"ROADMAP item {item}")
     mesh.make_mesh(tuple(config.mesh_shape), tuple(config.mesh_axes))
     print(f"Experiment folder: {config.log_dir}")
     mains[config.experiment](config, device)

@@ -37,6 +37,16 @@ its shard of the batch, and the losses take their negatives from the global
 batch as JAX's program does: NT-Xent over every rank's features laid out
 view 1 of every rank, then view 2; the region loss over every rank's patches
 laid out (aug, region, global image), at rank 0's region centres.
+
+Under ``--shard_spatial`` (``parallel/spatial.py``) the ranks of a spatial
+group read the same rows and draw alike, so each builds both views from
+the whole images, as JAX's step augments the whole sharded batch
+(tedm_tpu/trainers/contrastive.py:91, a crop moves rows across the
+shards), and only then keeps its rows of them for the UNet
+(``spatial.local_rows``). The models hand back whole maps (gathered along
+H), so the losses run as without the axis, over the data group; the loss
+scale stays the data axis's size. The finetunes run the baseline's loop,
+sharded as the baseline is.
 """
 
 from __future__ import annotations
@@ -51,7 +61,7 @@ from tedm_tpu_torch.config import Config
 from tedm_tpu_torch.data.pipeline import build_dataloaders
 from tedm_tpu_torch.models.contrastive import GlobalCL, LocalCL, global_nt_xent, region_centres, region_loss, region_rows
 from tedm_tpu_torch.ops.augment import augment_and_concat, brightness_contrast, crop_batch
-from tedm_tpu_torch.parallel import mesh
+from tedm_tpu_torch.parallel import mesh, spatial
 from tedm_tpu_torch.trainers import baseline
 from tedm_tpu_torch.trainers.common import init_seeded, to_nchw, train_segmentation, unet_kernels
 from tedm_tpu_torch.utils.checkpoint import checkpoint_exists, load_checkpoint, save_checkpoint
@@ -109,11 +119,16 @@ def make_steps(config: Config, model: torch.nn.Module, optimizer: torch.optim.Op
     wrapper, ``dp``'s) when given. Every rank computes the global loss from
     the gathered features and back-propagates it whole: its own rows' part
     of the gradient, ``world`` times over, which DDP's mean over the ranks
-    turns into the global gradient."""
+    turns into the global gradient. Under ``dp``'s spatial plan each rank
+    runs the model on its rows of the whole views (module docstring)."""
     forward = forward if forward is not None else model
+    depth = len(model.unet.downs) - 1
+
+    def plan_of(views):
+        return None if dp is None else dp.rows_plan(views.shape[2], depth)
 
     def loss_of(views, generator, centres):
-        feats = forward(views)
+        feats = forward(spatial.local_rows(views))
         b, n = views.shape[0] // 2, mesh.data_world()
         if isinstance(model, GlobalCL):
             # (rank, view, row) -> (view, rank, row): JAX's layout of the global batch
@@ -128,9 +143,10 @@ def make_steps(config: Config, model: torch.nn.Module, optimizer: torch.optim.Op
         forward.train()
         if views is None:
             views = augment_and_concat(x, generator)
-        loss = loss_of(views, generator, centres)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with spatial.sharded(plan_of(views)):
+            loss = loss_of(views, generator, centres)
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         if dp is not None:
             dp.finish_grads()
         optimizer.step()
@@ -141,7 +157,9 @@ def make_steps(config: Config, model: torch.nn.Module, optimizer: torch.optim.Op
         # eval mode: BatchNorm's running statistics, none updated (the
         # reference's validate() calls model.eval(), train_local_cl.py)
         forward.eval()
-        return loss_of(augment_and_concat(x, generator), generator, None)
+        views = augment_and_concat(x, generator)
+        with spatial.sharded(plan_of(views)):
+            return loss_of(views, generator, None)
 
     return CLSteps(train_step, eval_step)
 

@@ -18,8 +18,9 @@ against ``tedm_tpu/data/device_synthetic.py``) and ``--data_backend grain``
   batches included.
 * ``train.main`` trains a backbone step on device-rendered batches, and
   refuses ``device`` without synthetic data, ``grain`` without the package,
-  ``tp`` without a model axis (JAX's errors, in JAX's words) and spatial
-  sharding (not ported: ROADMAP A.5h).
+  ``tp`` without a model axis (JAX's errors, in JAX's words), and no longer
+  refuses what ROADMAP A.5h ported last (spatial sharding of the
+  contrastive arms, a mesh axis of another name).
 """
 
 import functools
@@ -189,8 +190,13 @@ def test_grain_backend_names_the_missing_package(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [["--shard_spatial", "--experiment", "global_cl"], ["--mesh_axes", "data", "spatial2"]])
-def test_spatial_sharding_is_not_ported(argv, tmp_path):
-    """What is left of spatial sharding to port: the contrastive arms under
-    --shard_spatial, and a mesh axis outside data, model and spatial."""
-    kind, msg = port_error(["--synthetic_data", *argv], tmp_path)
-    assert kind is NotImplementedError and "A.5h" in msg and "spatial" in msg
+def test_spatial_sharding_is_not_ported(argv, tmp_path, monkeypatch):
+    """Ported now (ROADMAP A.5h): the contrastive arms under --shard_spatial
+    and a mesh axis outside data, model and spatial reach their trainer."""
+    from tedm_tpu_torch.trainers import contrastive, diffusion
+
+    reached = []
+    for module, name in ((contrastive, "main_global"), (diffusion, "main")):
+        monkeypatch.setattr(module, name, lambda config, device: reached.append(config))
+    train_main([*TINY, "--synthetic_data", *argv, "--log_dir", str(tmp_path / "r")], device="cpu")
+    assert len(reached) == 1 and reached[0].experiment == (argv[2] if argv[0] == "--shard_spatial" else "img_only")

@@ -26,7 +26,6 @@ from tedm_tpu.serve.app import postprocess as jax_postprocess
 from tedm_tpu_torch.config import Config
 from tedm_tpu_torch.eval.harness import build_eval_task
 from tedm_tpu_torch.serve.app import Predictor, load_img, postprocess
-from tedm_tpu_torch.train import NOT_PORTED
 from tedm_tpu_torch.train import main as train_main
 from tedm_tpu_torch.trainers.baseline import BaselineTask
 from tedm_tpu_torch.utils.checkpoint import save_checkpoint
@@ -102,23 +101,28 @@ def test_entry_points_refuse_cpu_without_cuda(monkeypatch, tmp_path):
 
 
 def test_unported_experiment_names_its_roadmap_item(tmp_path, monkeypatch):
-    """The contrastive finetunes are served as baseline UNets; what the port
-    still refuses (spatial sharding of the contrastive arms, a mesh axis
-    outside data, model and spatial: the rest of ROADMAP A.5h) names its
-    item; ``--multihost`` without torchrun's environment and a
+    """The contrastive finetunes are served as baseline UNets; nothing of
+    ROADMAP A.5h is refused any more: spatial sharding of the contrastive
+    arms and a mesh axis outside data, model and spatial reach their
+    trainer; ``--multihost`` without torchrun's environment and a
     ``--mesh_shape`` the ranks do not fill are errors in JAX's words."""
     for experiment in ("global_finetune", "glob_loc_finetune"):
         task = build_eval_task(_config(tmp_path, experiment), device="cpu")
         assert isinstance(task, BaselineTask) and task.fold == 1
     with pytest.raises(ValueError, match="not recognized"):
         build_eval_task(_config(tmp_path, "global_cl"), device="cpu")
-    assert {item for _, _, item in NOT_PORTED} == {"A.5h"}
-    for flag, _, item in NOT_PORTED:
-        value = {"--remat": [], "--multihost": [], "--shard_spatial": ["--experiment", "global_cl"],
-                 "--mesh_shape": ["2"], "--mesh_axes": ["data", "spatial2"],
-                 "--profile_dir": ["p"]}[flag]
-        with pytest.raises(NotImplementedError, match=f"{flag} .*ROADMAP item {item}"):
-            train_main(["--synthetic_data", "--log_dir", str(tmp_path / "r"), flag, *value], device="cpu")
+    from tedm_tpu_torch import train
+    from tedm_tpu_torch.trainers import contrastive
+
+    assert not hasattr(train, "NOT_PORTED")
+    reached = []
+    monkeypatch.setattr(contrastive, "main_global", lambda config, device: reached.append(config))
+    for flags in (["--shard_spatial"], ["--mesh_shape", "1", "1", "--mesh_axes", "data", "spatial2"],
+                  ["--mesh_axes", "replica"]):
+        train_main(["--synthetic_data", "--experiment", "global_cl", "--log_dir", str(tmp_path / "r"), *flags],
+                   device="cpu")
+    assert [(c.shard_spatial, tuple(c.mesh_axes)) for c in reached] == [
+        (True, ("data",)), (False, ("data", "spatial2")), (False, ("replica",))]
     for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(var, raising=False)
     with pytest.raises(RuntimeError, match="--multihost needs torchrun's environment"):

@@ -22,6 +22,16 @@ their one-process versions on the CPU (``torch_sp_worker.halo_cases``).
   channel a group has a gradient of rounding alone).
 * The heads' nearest resize of a stage to a rank's rows of the output is
   local at the integer ratios of the stages (no ranks needed).
+* Fewer rows a rank than a halo reaches, which JAX runs: the 3x3 and 7x7
+  convs on a (2, 3, 4, 8) map, 1 row a rank (the 7x7's halo from the whole
+  map), against the whole map's conv as above; and the fp32 UNet at 8^2 (2
+  rows a rank, then 1) against one process as above, and against the JAX
+  package's forward and backward of the same weights (through
+  ``tedm_tpu.utils.torch_port``) on a (1, 4) data x spatial mesh of CPU
+  devices, its input's H sharded: each rank's output to 2e-4 of the largest
+  entry of its rows of JAX's, the gradients to 2e-4 of each tensor's largest
+  entry, or of 0.1 of the model's largest gradient entry where that is
+  more (``test_torch_sp_steps.py``'s gate).
 """
 
 import numpy as np
@@ -57,12 +67,12 @@ def close(got, want, tol):
     return np.abs(np.asarray(got) - want).max() <= tol * np.abs(want).max()
 
 
-def conv_reference(inputs, name):
+def conv_reference(inputs, name, pre=""):
     k, s, p = SW.CONVS[name]
-    x = inputs["x"].clone().requires_grad_()
+    x = inputs[pre + "x"].clone().requires_grad_()
     w, b = inputs[name + " w"].clone().requires_grad_(), inputs[name + " b"].clone().requires_grad_()
     y = F.conv2d(x, w, b, stride=s, padding=p)
-    (y * inputs[name + " dy"]).sum().backward()
+    (y * inputs[pre + name + " dy"]).sum().backward()
     return y.detach(), x.grad, w.grad, b.grad
 
 
@@ -141,3 +151,59 @@ def test_stage_resize_is_local_at_integer_ratios(size):
         with spatial.sharded(spatial.Plan(None, WORLD, r)):
             got = nearest_resize(spatial.local_rows(f), spatial.local_size(size), size)
         np.testing.assert_array_equal(got.numpy(), rows(whole, r))
+
+
+@pytest.mark.parametrize("name", ["3x3", "7x7"])
+def test_halo_past_the_neighbours_equals_whole_map_conv(ranks, inputs, name):
+    y, dx, dw, db = conv_reference(inputs, name, "narrow ")
+    for r, got in enumerate(ranks):
+        assert got["narrow", name]["y"].shape[2] == 1
+        assert close(got["narrow", name]["y"], rows(y, r), 1e-5), r
+        assert close(got["narrow", name]["dx"], rows(dx, r), 1e-5), r
+    assert close(sum(g["narrow", name]["dw"] for g in ranks), dw, 1e-5)
+    assert close(sum(g["narrow", name]["db"] for g in ranks), db, 1e-5)
+
+
+def test_unet_of_fewer_rows_a_rank_than_its_halo_matches_jax(ranks, inputs):
+    import jax
+    import jax.numpy as jnp
+
+    from tedm_tpu.config import Config as JaxConfig
+    from tedm_tpu.models.unet import Unet as JaxUnet
+    from tedm_tpu.parallel import data_parallel_setup
+    from tedm_tpu.utils.torch_port import convert_unet_state_dict
+
+    x, t, dy = inputs["narrow unet x"], inputs["unet t"], inputs["narrow unet dy"]
+    want = SW.unet_step("fp32", x, t, dy)
+    y1 = torch.from_numpy(want["y"])
+    for r, got in enumerate(ranks):
+        assert got["unet", "narrow fp32"]["y"].shape[2] == SW.NARROW_UNET // WORLD
+        assert close(got["unet", "narrow fp32"]["y"], rows(y1, r), TOL["fp32"]), r
+    got = ranks[0]["unet", "narrow fp32"]["grads"]
+    floor = 0.1 * max(np.abs(g).max() for g in want["grads"].values())
+    assert [n for n, g in want["grads"].items()
+            if not np.abs(got[n] - g).max() <= TOL["fp32"] * max(np.abs(g).max(), floor)] == []
+
+    n_stages = len(SW.UNET["dim_mults"])
+    params = convert_unet_state_dict({k: v.numpy() for k, v in SW.unet_of("fp32").state_dict().items()}, n_stages)
+    junet = JaxUnet(**SW.UNET, channels=1)
+    jdy = jnp.asarray(dy.numpy().transpose(0, 2, 3, 1))
+
+    def loss(p, v):
+        y = junet.apply({"params": p}, v, jnp.asarray(t.numpy()))
+        return (y * jdy).sum(), y
+
+    shard, replicate = data_parallel_setup(
+        JaxConfig(mesh_shape=(1, WORLD), mesh_axes=("data", "spatial"), shard_spatial=True), 2)
+    xs = shard({"x": x.numpy().transpose(0, 2, 3, 1)})["x"]
+    assert xs.sharding.spec == jax.sharding.PartitionSpec("data", "spatial")
+    (_, jy), jgrads = jax.jit(jax.value_and_grad(loss, has_aux=True))(replicate(params), xs)
+    jy = torch.from_numpy(np.asarray(jy).transpose(0, 3, 1, 2).copy())
+    for r, g in enumerate(ranks):
+        assert close(g["unet", "narrow fp32"]["y"], rows(jy, r), 2e-4), r
+    flat = lambda tree: {"/".join(k.key for k in path): np.asarray(v)
+                         for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+    mine, theirs = flat(convert_unet_state_dict(got, n_stages)), flat(jgrads)
+    assert mine.keys() == theirs.keys()
+    floor = 0.1 * max(np.abs(g).max() for g in theirs.values())
+    assert [n for n, g in theirs.items() if not np.abs(mine[n] - g).max() <= 2e-4 * max(np.abs(g).max(), floor)] == []

@@ -23,6 +23,8 @@ from torch_parallel_worker import DIM, LR, ONE_STAGE, SIZE, _numpy, patched
 CONVS = {"3x3": (3, 1, 1), "7x7": (7, 1, 3), "4x4/2": (4, 2, 1)}
 HALO_SHAPE = (2, 3, 16, 8)         # (B, C, H, W) of the halo checks
 UNET = dict(dim=8, dim_mults=(1, 2))  # the UNet of the halo file's model checks, at 16^2
+NARROW_SHAPE = (2, 3, 4, 8)        # 1 row a rank: the 7x7's halo reaches 3 ranks on
+NARROW_UNET = 8                    # the halo file's UNet at 8^2: 2 rows a rank, then 1
 UNET_PATHS = {"fp32": {}, "bf16": {"dtype": torch.bfloat16},
               "opt-in": {"fused_groupnorm": True, "fused_resblock": True, "flash_attention": True}}
 
@@ -42,6 +44,11 @@ def halo_inputs() -> Dict[str, np.ndarray]:
     d["unet x"] = rs.standard_normal((2, 1, 16, 16)).astype(np.float32)
     d["unet t"] = np.array([3, 700])
     d["unet dy"] = rs.standard_normal((2, 1, 16, 16)).astype(np.float32)
+    d["narrow x"] = rs.standard_normal(NARROW_SHAPE).astype(np.float32)
+    for name in ("3x3", "7x7"):
+        d["narrow " + name + " dy"] = rs.standard_normal((2, 4, *NARROW_SHAPE[2:])).astype(np.float32)
+    d["narrow unet x"] = rs.standard_normal((2, 1, NARROW_UNET, NARROW_UNET)).astype(np.float32)
+    d["narrow unet dy"] = rs.standard_normal((2, 1, NARROW_UNET, NARROW_UNET)).astype(np.float32)
     return d
 
 
@@ -65,7 +72,9 @@ def unet_step(path: str, x: torch.Tensor, t: torch.Tensor, dy: torch.Tensor) -> 
 def halo_cases(rank: int, world: int, out: str) -> None:
     """The halo, the gather and the sum on a spatial axis of ``world``
     ranks, then the UNet on each path on this rank's rows; and the conv
-    gradients again with the halo gradients' return taken out."""
+    gradients again with the halo gradients' return taken out. Then the
+    narrow cases: the 3x3 and 7x7 convs on a map of 1 row a rank, and the
+    fp32 UNet at 8^2 (2 rows a rank, then 1)."""
     import torch.distributed as dist
 
     from tedm_tpu_torch.parallel import mesh, spatial
@@ -76,13 +85,13 @@ def halo_cases(rank: int, world: int, out: str) -> None:
     d = {k: torch.from_numpy(v) for k, v in halo_inputs().items()}
     res: Dict[Any, Any] = {}
 
-    def conv_case(name):
+    def conv_case(name, pre=""):
         k, s, p = CONVS[name]
         conv = torch.nn.Conv2d(HALO_SHAPE[1], 4, k, stride=s, padding=p)
         w, b = d[name + " w"].clone().requires_grad_(), d[name + " b"].clone().requires_grad_()
-        x = spatial.local_rows(d["x"]).requires_grad_()
+        x = spatial.local_rows(d[pre + "x"]).requires_grad_()
         y = spatial.conv2d(conv, x, w, b)
-        (y * spatial.local_rows(d[name + " dy"])).sum().backward()
+        (y * spatial.local_rows(d[pre + name + " dy"])).sum().backward()
         return {"y": y.detach().numpy().copy(), "dx": x.grad.numpy().copy(),
                 "dw": w.grad.numpy().copy(), "db": b.grad.numpy().copy()}
 
@@ -100,13 +109,16 @@ def halo_cases(rank: int, world: int, out: str) -> None:
         s = spatial.spatial_sum(v)
         (s * (rank + 1)).sum().backward()
         res["sum"] = {"y": s.detach().numpy().copy(), "dx": v.grad.numpy().copy()}
-        for path in UNET_PATHS:
-            r = unet_step(path, spatial.local_rows(d["unet x"]), d["unet t"], spatial.local_rows(d["unet dy"]))
+        for name in ("3x3", "7x7"):
+            res["narrow", name] = conv_case(name, "narrow ")
+        for path, pre in [*((path, "") for path in UNET_PATHS), ("fp32", "narrow ")]:
+            r = unet_step(path, spatial.local_rows(d[pre + "unet x"]), d["unet t"],
+                          spatial.local_rows(d[pre + "unet dy"]))
             for n, gr in r["grads"].items():  # the gradient of the whole map's loss: the ranks' parts added
                 gt = torch.from_numpy(gr)
                 dist.all_reduce(gt, group=plan.group)
                 r["grads"][n] = gt.numpy()
-            res["unet", path] = r
+            res["unet", pre + path] = r
     torch.save(res, os.path.join(out, f"halo{rank}.pt"))
 
 
@@ -278,18 +290,21 @@ def cli_cases(rank: int, world: int, out: str, runs, evaluated: str) -> None:
     """The spatially sharded runs ``runs`` {name: argv} in turn, every rank
     on the same log directory (rank 0 writes), then the eval CLIs over the
     run ``evaluated`` (its config has ``--shard_spatial``) with
-    ``--multihost``; rank 0 saves what each run logged and what each CLI
-    raised."""
+    ``--multihost``, on the first 5 images of each set; rank 0 saves what
+    each run logged and the sets whose files each CLI wrote."""
     from tedm_tpu_torch.config import config_from_args
     from tedm_tpu_torch.eval import run_tests, testing_shared_weights
+    from torch_parallel_worker import small_sets
 
     got: Dict[Any, Any] = {name: cli_run([*argv, *SP]) for name, argv in runs.items()}
     exp_dir = config_from_args([*runs[evaluated], *SP]).log_dir
+    npz = lambda: sorted(f for f in os.listdir(exp_dir) if f.endswith("_predictions.npz"))
     for cli in (run_tests, testing_shared_weights):
-        try:
-            cli.main(["-e", exp_dir, "--multihost"], device="cpu")
-            got[cli.__name__] = None
-        except NotImplementedError as e:
-            got[cli.__name__] = str(e)
+        if rank == 0:  # the files of the last CLI, which only rank 0 writes and reads
+            for f in npz():
+                os.remove(os.path.join(exp_dir, f))
+        with patched(cli, "build_test_loaders", small_sets(cli.build_test_loaders)):
+            cli.main(["-e", exp_dir, "--multihost", "--rerun"], device="cpu")
+        got[cli.__name__] = npz()
     if rank == 0:
         torch.save(got, os.path.join(out, "cli.pt"))
