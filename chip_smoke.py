@@ -10,7 +10,8 @@ Phases, each of which exits non-zero on failure:
   1. environment: the card's name and power limit (nvidia-smi); TF32 off,
      and bf16 products summed in fp32 (no reduced-precision split-K);
   2. build: every CUDA source in tedm_tpu_torch/kernels/csrc, one nvcc per
-     source, all started together;
+     source, all started together (and no library of an earlier run kept,
+     phase 21's host library either: the port builds it at first use);
   3. linear attention forward vs plain at the serving shapes, and the
      forward and backward vs plain at the training shapes and at edge
      shapes, with the forward's saved context and statistics vs plain, the
@@ -190,7 +191,25 @@ Phases, each of which exits non-zero on failure:
      whose config shards spatially, on (b)'s 2 ranks (2 images a set),
      against the same CLI in one process: the npz files' probabilities at
      PATH_TOL, each image's Dice, precision and recall to 1e-6;
-then one JSON line listing every kernel and the final JSON status line.
+ 21. the host image path (``tedm_tpu_torch/native``): (a) g++'s seconds to
+     build the library into a fresh directory and its flavor (``png``, or
+     ``resize`` where libpng's headers are missing or the PNG build fails,
+     said on a line of its own with g++'s output); the phase fails if the
+     port's library is not available; (b) this
+     machine's Pillow version, and the library against it byte for byte:
+     three filters at (2048^2, 1024^2, 256^2, 100x173 -> 128^2) and 131x67 ->
+     37x91, and with libpng the PNG route, one file and a batch, on gray8,
+     gray16, gray16 + alpha, RGB, RGBA, palette and 1-bit files; (c) a CXR14
+     corpus of 64 PNGs at 1024^2 and a JSRT one of 16 PNGs at 2048^2 with
+     their two GIF lungs at SCR's 1024^2 (export_corpus.py's writer), each
+     read by the port's train loader (batch 16 at 128^2, the default 4
+     threads; CXR14 through its whole-batch ``get_batch``) with
+     ``TEDM_NATIVE=0`` and without, 3 runs a route in turns: ms a batch
+     after the first beside the step each corpus feeds and as a share of
+     it (CXR14 path (a)'s, phase 5; JSRT the fp32 baseline's at batch 16,
+     phase 14), the routes' batches byte-equal;
+then one JSON line listing every kernel (and phases 14-21's reports) and the
+final JSON status line.
 """
 
 from __future__ import annotations
@@ -3724,6 +3743,205 @@ def phase_20(tmp, pair):
     return runs + runs2, report
 
 
+HOST_SIZES = [((2048, 2048), (128, 128)), ((1024, 1024), (128, 128)), ((256, 256), (128, 128)),
+              ((100, 173), (128, 128)), ((131, 67), (37, 91))]  # phase 21 (b): (in, out) of each resize
+HOST_PNG_MODES = ("gray8", "gray16", "gray16_alpha", "rgb", "rgba", "palette", "bit1")
+HOST_CXR14, HOST_JSRT = (64, 1024), (16, 2048)  # phase 21 (c): files and their side
+HOST_SCR_SIDE = 1024           # SCR's lung masks (van Ginneken et al. 2006, Med. Image Anal. 10(1)): 1024^2
+HOST_JSRT_ROWS = 64            # rows of the JSRT split, cycling over its 16 files: 4 batches an epoch
+HOST_BATCHES = {"CXR14": 6, "JSRT": 4}  # timed batches of each run, after its first
+HOST_ORDER = ("pil", "native", "native", "pil", "pil", "native")  # the runs of each corpus, in turns
+
+
+def host_png_cases(d) -> dict:
+    """One PNG of each mode that a reader may meet, written by PIL (and the
+    16-bit gray + alpha one by hand: PIL writes no LA;16B)."""
+    import struct
+    import zlib
+
+    from PIL import Image
+
+    rs = np.random.RandomState(SEED)
+    rgb = Image.fromarray(rs.randint(0, 256, (150, 200, 3), np.uint8), "RGB")
+    imgs = {"gray8": Image.fromarray(rs.randint(0, 256, (220, 180), np.uint8), "L"),
+            "gray16": Image.fromarray(rs.randint(0, 2**16, (120, 90)).astype(np.uint16)),
+            "rgb": rgb, "rgba": Image.fromarray(rs.randint(0, 256, (150, 200, 4), np.uint8), "RGBA"),
+            "palette": rgb.convert("P", palette=Image.ADAPTIVE),
+            "bit1": Image.fromarray(rs.randint(0, 256, (99, 77), np.uint8), "L").convert("1")}
+    paths = {}
+    for mode in HOST_PNG_MODES:
+        paths[mode] = os.path.join(d, f"{mode}.png")
+        if mode in imgs:
+            imgs[mode].save(paths[mode])
+            continue
+        g = rs.randint(0, 2**16, (70, 50)).astype(np.uint16)
+        raw = b"".join(b"\x00" + row.tobytes() for row in np.stack([g, np.full_like(g, 65535)], -1).astype(">u2"))
+        chunk = lambda tag, data: (struct.pack(">I", len(data)) + tag + data
+                                   + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+        with open(paths[mode], "wb") as f:
+            f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", 50, 70, 16, 4, 0, 0, 0))
+                    + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+    return paths
+
+
+def host_bytes(native, d) -> list:
+    """Phase 21 (b): the library against this machine's Pillow, byte for
+    byte; the cases held."""
+    from PIL import Image
+
+    filters = {"bicubic": Image.BICUBIC, "bilinear": Image.BILINEAR, "nearest": Image.NEAREST}
+    held = []
+    for (h, w), (oh, ow) in HOST_SIZES:
+        img = np.random.RandomState(h + w).randint(0, 256, (h, w), dtype=np.uint8)
+        for name, filt in filters.items():
+            got, want = native.resize_u8(img, (oh, ow), name), np.asarray(Image.fromarray(img).resize((ow, oh), filt))
+            if not np.array_equal(got, want):
+                fail(f"native resize {name} ({h}x{w} -> {oh}x{ow}) differs from Pillow's in "
+                     f"{int((got != want).sum())} bytes")
+            held.append(f"resize {name} {h}x{w}->{oh}x{ow}")
+    if native.flavor() != "png":
+        return held
+    cases = host_png_cases(d)
+    out, ok = native.load_resize_png_batch(list(cases.values()), (128, 128))
+    for (mode, path), row, row_ok in zip(cases.items(), out, ok):
+        got = native.load_resize_png(path, (128, 128))
+        with Image.open(path) as img:
+            want = np.asarray(img.convert("L").resize((128, 128)))
+        if got is None or not row_ok:
+            fail(f"native PNG route refused the {mode} file")
+        if not (np.array_equal(got, want) and np.array_equal(row, want)):
+            fail(f"native PNG route differs from Pillow's on the {mode} file in {int((got != want).sum())} bytes")
+        held.append(f"png {mode} -> 128x128 (one file and the batch)")
+    return held
+
+
+def host_corpora(root) -> dict:
+    """Phase 21 (c)'s corpora, by scripts/port/export_corpus.py's writer:
+    CXR14's layout with 64 PNGs at 1024^2, and JSRT's with 16 PNGs at
+    2048^2 and their two GIF lungs at SCR's 1024^2 (the mask taken at every
+    other pixel), whose split cycles over them in 64 rows.
+    Returns each corpus's ``build_dataloaders`` arguments."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "port"))
+    import export_corpus as ec
+
+    from tedm_tpu_torch.data.datasets import SyntheticCXRDataset
+
+    cxr, jsrt = os.path.join(root, "cxr14"), os.path.join(root, "jsrt")
+    for d in (os.path.join(cxr, "CXR14"), os.path.join(cxr, "data"), os.path.join(jsrt, "JSRT", "images"),
+              os.path.join(jsrt, "data"), *(os.path.join(jsrt, "JSRT", "SCR", "masks", lab)
+                                            for lab in ("right lung", "left lung"))):
+        os.makedirs(d, exist_ok=True)
+    cxr_ds = SyntheticCXRDataset("cxr_train", HOST_CXR14[0], HOST_CXR14[1], labelled=False, seed=SEED)
+    jsrt_ds = SyntheticCXRDataset("train", HOST_JSRT[0], HOST_JSRT[1], labelled=True, seed=SEED)
+
+    def cxr_file(i):
+        ec._save_png(os.path.join(cxr, "CXR14", f"cxr_{i:05d}.png"), cxr_ds[i])
+
+    def jsrt_file(i):
+        img, mask = jsrt_ds[i]
+        iid = f"train_{i:04d}"
+        ec._save_png(os.path.join(jsrt, "JSRT", "images", iid + ".png"), img)
+        step = HOST_JSRT[1] // HOST_SCR_SIDE
+        for lab, m in zip(("right lung", "left lung"), ec._split_lungs(mask[::step, ::step])):
+            ec._save_gif(os.path.join(jsrt, "JSRT", "SCR", "masks", lab, iid + ".gif"), m)
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        list(pool.map(cxr_file, range(HOST_CXR14[0])))
+        list(pool.map(jsrt_file, range(HOST_JSRT[0])))
+    ec._write_csv(os.path.join(cxr, "data", "train_split.csv"), ("Image Index",),
+                  [{"Image Index": f"cxr_{i:05d}.png"} for i in range(HOST_CXR14[0])])
+    rows = [{"path": f"images/train_{i % HOST_JSRT[0]:04d}.png", "id": f"train_{i % HOST_JSRT[0]:04d}"}
+            for i in range(HOST_JSRT_ROWS)]
+    for split in ("train", "val", "test"):
+        ec._write_csv(os.path.join(jsrt, "data", f"JSRT_{split}_split.csv"), ("path", "id"), rows)
+    return {"CXR14": (os.path.join(cxr, "CXR14"), os.path.join(cxr, "data")),
+            "JSRT": (os.path.join(jsrt, "JSRT"), os.path.join(jsrt, "data"))}
+
+
+def host_reader_run(dataset, data_dir, splits_dir, route, workers) -> tuple:
+    """One run of the port's train loader over a corpus (batch 16 at
+    128^2) with the library (``native``) or without (``pil``,
+    ``TEDM_NATIVE=0``): ms a batch over HOST_BATCHES batches after the
+    first, and the batches."""
+    from tedm_tpu_torch.data.pipeline import build_dataloaders
+
+    os.environ["TEDM_NATIVE"] = "1" if route == "native" else "0"
+    try:
+        batches = build_dataloaders(dataset, data_dir, 128, 16, workers, seed=SEED, splits_dir=splits_dir)["train"]
+        it = batches.repeat()
+        got = [next(it)]
+        t0 = time.perf_counter()
+        got += [next(it) for _ in range(HOST_BATCHES[dataset])]
+        ms = 1e3 * (time.perf_counter() - t0) / HOST_BATCHES[dataset]
+        it.close()
+    finally:
+        del os.environ["TEDM_NATIVE"]
+    return ms, got
+
+
+def host_image_path(tmp, steps) -> dict:
+    """Phase 21: the native library's build, its bytes against this
+    machine's Pillow, and the port's readers with and without it beside the
+    step each corpus feeds: ``steps`` = {corpus: (step's name, its ms)}."""
+    import PIL
+
+    from tedm_tpu_torch import native
+    from tedm_tpu_torch.config import Config
+
+    d = os.path.join(tmp, "host")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    _, fresh_flavor, png_error = native.build(os.path.join(d, "_build"))  # a fresh directory: g++ runs
+    build_s = time.perf_counter() - t0
+    if not native.available():
+        fail(f"the native library is not available on this machine:\n{native._LIBRARY.error}")
+    print(f"(a) g++ built the {fresh_flavor} library in {build_s:.2f} s; the port's own library: "
+          f"{native.flavor()}", flush=True)
+    if png_error:
+        print(f"(a) libpng's headers are here but the PNG build failed, so the PNG route goes unheld on this "
+              f"card:\n{png_error}", flush=True)
+    elif native.flavor() != "png":
+        print("(a) libpng's headers are missing on this machine: the PNG route goes unheld on this card", flush=True)
+
+    held = host_bytes(native, d)
+    print(f"(b) Pillow {PIL.__version__}: the library equals it byte for byte in {len(held)} cases: "
+          f"{'; '.join(held)}", flush=True)
+
+    t0 = time.perf_counter()
+    corpora = host_corpora(os.path.join(d, "corpora"))
+    print(f"(c) corpora written in {time.perf_counter() - t0:.1f} s", flush=True)
+    workers = Config().num_workers
+    threads = min(16, os.cpu_count() or 1) if native.flavor() == "png" else 0  # the PNG batch route's
+    report = {"build_s": build_s, "flavor": native.flavor(), "png_route_held": native.flavor() == "png",
+              "pillow": PIL.__version__, "held": held, "loader_threads": workers,
+              "native_batch_threads": threads, "cpu_count": os.cpu_count(),
+              "png_build_error": png_error, "mask_side": HOST_SCR_SIDE}
+    for dataset, (data_dir, splits_dir) in corpora.items():
+        runs, ref = {"pil": [], "native": []}, None
+        for route in HOST_ORDER:
+            ms, got = host_reader_run(dataset, data_dir, splits_dir, route, workers)
+            runs[route].append(ms)
+            ref = ref or got
+            for i, (a, b) in enumerate(zip(got, ref)):
+                for k in b:
+                    if not np.array_equal(a[k], b[k]):
+                        fail(f"{dataset} batch {i} '{k}' through the {route} route differs from the pil route's")
+        per = {r: statistics.median(v) for r, v in runs.items()}
+        step_name, step_ms = steps[dataset]
+        report[dataset] = {"ms": runs, "median_ms": per, "step": step_name, "step_ms": step_ms,
+                           "share_of_step": {r: v / step_ms for r, v in per.items()}}
+        n, side = HOST_CXR14 if dataset == "CXR14" else HOST_JSRT
+        lungs = f", 2 GIF lungs each at {HOST_SCR_SIDE}^2" if dataset == "JSRT" else ""
+        print(f"(c) {dataset} ({n} files at {side}^2{lungs}) -> "
+              f"batch 16 at 128^2, {workers} loader threads, {threads} native batch threads, "
+              f"{os.cpu_count()} cores: ms a batch (runs in turns {HOST_ORDER}) pil "
+              f"{[round(x, 3) for x in runs['pil']]}, native {[round(x, 3) for x in runs['native']]}; "
+              f"medians {per['pil']:.3f} / {per['native']:.3f} ms = {per['pil'] / step_ms:.3f} / "
+              f"{per['native'] / step_ms:.3f} of {step_name} ({step_ms:.3f} ms); "
+              f"the routes' batches byte-equal", flush=True)
+    return report
+
+
 def add_paths(*runs) -> dict:
     """Each kernel's launches summed over the named runs of its main path:
     {kernel: {path: launches}}, paths with no launch left out."""
@@ -3739,6 +3957,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script measures the port on a card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from tedm_tpu_torch import native
     from tedm_tpu_torch.kernels import _build
     from tedm_tpu_torch.kernels import attn_block as ab
     from tedm_tpu_torch.kernels import flash_attention as fa
@@ -3759,9 +3978,11 @@ def main() -> None:
 
     with Phase("2. build"):
         sources = sorted(f[:-3] for f in os.listdir(_build.CSRC) if f.endswith(".cu"))
-        for name in sources:  # never reuse a library from an earlier run
-            if os.path.exists(_build.library_path(name)):
-                os.unlink(_build.library_path(name))
+        libraries = [_build.library_path(name) for name in sources]
+        libraries += [native.library_path(flavor) for flavor in native.FLAVORS]  # phase 21's, built at first use
+        for path in libraries:  # never reuse a library from an earlier run
+            if os.path.exists(path):
+                os.unlink(path)
         with ThreadPoolExecutor(max_workers=len(sources)) as pool:
             for name, path in zip(sources, pool.map(_build.build, sources)):
                 print(f"built {name}: {os.path.relpath(path)}")
@@ -3826,6 +4047,10 @@ def main() -> None:
                 runs20, report20 = phase_20(tmp, pair)
         finally:
             pair.close()
+        with Phase("21. host image path: the native library's build and bytes, the readers beside a step"):
+            report21 = host_image_path(tmp, {
+                "CXR14": ("path (a)'s step (phase 5)", a32_ms),
+                "JSRT": ("the baseline's step at batch 16 (phase 14)", eval_report["baseline step ms (batch 16)"])})
 
     paths = add_paths(("serving", served["launches"]), ("training (a)", a32), ("training (b)", b32),
                       ("bf16 serving", served16["launches"]), ("bf16 training (a)", a16),
@@ -3940,7 +4165,7 @@ def main() -> None:
             fail(f"{kern['name']} was never launched on the main path")
     print(json.dumps({"kernels": kernels, "phase_14": eval_report, "phase_15": cl_report, "phase_16": cond_report,
                       "phase_17": report17, "phase_18": report18, "phase_19": report19,
-                      "phase_20": report20}))
+                      "phase_20": report20, "phase_21": report21}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

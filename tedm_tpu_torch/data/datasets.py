@@ -17,8 +17,10 @@ preprocessing of the reference:
                package's for the same (split, seed, index, size), so both
                packages train on the same corpus.
 
-Images are decoded and resized by PIL, the JAX package's own path where its
-native resampler is not built (and byte-exact with it). The split CSVs in
+Images are decoded and resized as the JAX package's readers do: by the
+native library (``tedm_tpu_torch/native``: libpng and Pillow's resampling in
+C++) where it is built, else by PIL, which gives the same bytes; CXR14's
+``get_batch`` reads a whole batch in one native call. The split CSVs in
 ``splits/`` are copies of the JAX package's, read with the ``csv`` module:
 every value stays the string the file holds (JSRT ids such as ``JPCLN001``).
 """
@@ -26,8 +28,9 @@ every value stays the string the file holds (JSRT ids such as ``JPCLN001``).
 from __future__ import annotations
 
 import csv
+import functools
 import os
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -42,11 +45,23 @@ def read_rows(splits_dir: str, csv_name: str) -> List[Dict[str, str]]:
 
 def _load_pil_image(path: str, img_size: int) -> np.ndarray:
     """PIL ``convert('L').resize((s, s))`` then ToTensor semantics (/255), as
-    (H, W, 1) float32 (reference: dataloaders/JSRT.py:62-65)."""
+    (H, W, 1) float32 (reference: dataloaders/JSRT.py:62-65). JAX's three
+    routes in its order: a native PNG decode and resize; else a PIL decode
+    and a native resize; else PIL alone. All give the same bytes."""
     from PIL import Image
 
-    with Image.open(path) as img:
-        arr8 = np.asarray(img.convert("L").resize((img_size, img_size)), dtype=np.uint8)
+    from tedm_tpu_torch import native
+
+    arr8 = None
+    if path.lower().endswith(".png") and native.png_available():
+        arr8 = native.load_resize_png(path, (img_size, img_size))
+    if arr8 is None:
+        with Image.open(path) as img:
+            gray = img.convert("L")
+        if native.available():
+            arr8 = native.resize_u8(np.asarray(gray, dtype=np.uint8), (img_size, img_size))
+        else:
+            arr8 = np.asarray(gray.resize((img_size, img_size)), dtype=np.uint8)
     return arr8.astype(np.float32)[..., None] / 255.0
 
 
@@ -100,8 +115,31 @@ class CXR14Dataset:
     def __len__(self) -> int:
         return len(self.rows)
 
+    def _path(self, index: int) -> str:
+        return os.path.join(self.data_path, self.rows[index]["Image Index"])
+
     def __getitem__(self, index: int) -> np.ndarray:
-        return _load_pil_image(os.path.join(self.data_path, self.rows[index]["Image Index"]), self.img_size)
+        return _load_pil_image(self._path(index), self.img_size)
+
+    def get_batch(self, indices: Sequence[int], map_fn: Callable = map) -> np.ndarray:
+        """The images of ``indices`` as (B, H, W, 1), equal to
+        ``__getitem__`` of each: one native call decodes and resizes every
+        PNG across C++ threads without the GIL. A row it refuses, and every
+        row where the library has no PNG route, is read by
+        ``_load_pil_image`` through ``map_fn`` (the ``Loader`` passes its
+        thread pool's ``map``)."""
+        from tedm_tpu_torch import native
+
+        paths = [self._path(i) for i in indices]
+        load = functools.partial(_load_pil_image, img_size=self.img_size)
+        if native.png_available() and all(p.lower().endswith(".png") for p in paths):
+            out, ok = native.load_resize_png_batch(paths, (self.img_size, self.img_size))
+            imgs = out.astype(np.float32)[..., None] / 255.0
+            refused = np.flatnonzero(~ok)
+            for j, img in zip(refused, map_fn(load, [paths[j] for j in refused])):
+                imgs[j] = img
+            return imgs
+        return np.stack(list(map_fn(load, paths)))
 
 
 class NIHDataset:

@@ -11,7 +11,8 @@ on the device as NCHW tensors).
   process, so the strided shards of a data-parallel run never overlap
   (``shard_index``/``shard_count``).
 * Samples are made in ``num_workers`` threads while the device computes; a
-  bounded queue holds ready batches.
+  bounded queue holds ready batches. A dataset without labels that has
+  ``get_batch`` (CXR14) makes each batch in one call instead.
 
 Batches are NHWC numpy, as in the JAX package; the trainers move them to
 the device as NCHW tensors.
@@ -90,7 +91,12 @@ class Loader:
         bs = self.batch_size
         valid = np.zeros((bs,), np.float32)
         valid[: len(idxs)] = 1.0
-        items = list(pool.map(self.dataset.__getitem__, idxs))
+        if len(idxs) and not self.has_labels and hasattr(self.dataset, "get_batch"):
+            # one call for the whole batch (CXR14: one native decode and
+            # resize across C++ threads, without the GIL; PIL in the pool)
+            items = list(self.dataset.get_batch(list(idxs), pool.map))
+        else:
+            items = list(pool.map(self.dataset.__getitem__, idxs))
         # a shard that ran out before the epoch's batch count yields a batch
         # of padding only, shaped like item 0
         first = items[0] if items else self.dataset[0]

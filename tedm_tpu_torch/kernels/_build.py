@@ -5,18 +5,18 @@ a library with a plain C interface, loaded with ``ctypes``. Nothing here
 includes PyTorch's headers, so a build takes seconds. Libraries land in
 ``tedm_tpu_torch/_build/`` under a name that carries a hash of the source,
 of every shared header ``csrc/*.cuh`` and of the flags, so an edited source
-or header is rebuilt and an unchanged one is reused. The build runs at
-first use, never at import.
+or header is rebuilt and an unchanged one is reused (``tedm_tpu_torch/_cc.py``,
+shared with the host library's g++ build). The build runs at first use,
+never at import.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
-import tempfile
+
+from tedm_tpu_torch import _cc
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
@@ -39,29 +39,17 @@ def find_nvcc() -> str:
 def library_path(name: str) -> str:
     """Path of the built library for ``csrc/<name>.cu`` at its current
     content and that of every ``csrc/*.cuh`` it may include."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
-    for part in [name + ".cu"] + headers:
-        with open(os.path.join(CSRC, part), "rb") as f:
-            h.update(part.encode() + b"\0" + f.read())
-    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+    return _cc.library_path(BUILD_DIR, name, " ".join(NVCC_FLAGS),
+                            [os.path.join(CSRC, part) for part in [name + ".cu"] + headers])
 
 
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless a library of the same hash exists;
     return the library's path. Raises with nvcc's output on failure."""
     out = library_path(name)
-    if os.path.isfile(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    if not os.path.isfile(out):
+        _cc.compile_into([find_nvcc(), *NVCC_FLAGS, os.path.join(CSRC, name + ".cu")], out, f"nvcc for {name}.cu")
     return out
 
 

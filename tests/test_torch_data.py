@@ -1,17 +1,21 @@
 """The port's synthetic corpus, batch loader and command line against the JAX
 package's, on the CPU: ``SyntheticCXRDataset`` samples bit-equal (easy and
 hard), the ``Loader``'s batches (order, padding, ``valid``) equal over two
-shuffled epochs, and ``config_from_args`` equal on a few argument lists."""
+shuffled epochs, also over a CXR14 corpus of PNG files through its
+whole-batch ``get_batch`` (with the native library and without), and
+``config_from_args`` equal on a few argument lists."""
 
 import numpy as np
 import pytest
+from PIL import Image
 
 from tedm_tpu.config import config_from_args as jax_config_from_args
+from tedm_tpu.data.datasets import CXR14Dataset as JaxCXR14
 from tedm_tpu.data.datasets import SyntheticCXRDataset as JaxSynthetic
 from tedm_tpu.data.pipeline import Loader as JaxLoader
 from tedm_tpu.data.pipeline import build_dataloaders as jax_build_dataloaders
 from tedm_tpu_torch.config import config_from_args
-from tedm_tpu_torch.data.datasets import SyntheticCXRDataset
+from tedm_tpu_torch.data.datasets import CXR14Dataset, SyntheticCXRDataset
 from tedm_tpu_torch.data.pipeline import Loader, build_dataloaders
 
 
@@ -49,6 +53,47 @@ def test_loader_batches_equal_jax(kw):
             assert sorted(a) == sorted(b) == ["image", "mask", "valid"]
             for k in a:
                 np.testing.assert_array_equal(a[k], b[k])
+
+
+@pytest.fixture(scope="module")
+def cxr14_corpus(tmp_path_factory):
+    """Five CXR14 PNGs of other sizes than the output, and their split CSV."""
+    root = tmp_path_factory.mktemp("cxr14")
+    rs = np.random.RandomState(4)
+    names = [f"0000{i}_000.png" for i in range(5)]
+    for i, name in enumerate(names):
+        Image.fromarray(rs.randint(0, 256, (40 + 3 * i, 29 + 5 * i), np.uint8)).save(root / name)
+    (root / "train_split.csv").write_text("Image Index\n" + "".join(n + "\n" for n in names))
+    return str(root)
+
+
+@pytest.mark.parametrize("route", ["native", "pil"])
+@pytest.mark.parametrize("shard_count", [1, 2])
+def test_cxr14_loader_through_get_batch_equals_jax(cxr14_corpus, route, shard_count, monkeypatch):
+    """Five files at batch 2: one shard ends on a short batch; of two shards
+    (3 and 2 files, 2 batches an epoch), the second runs out and pads a
+    whole batch. Every batch is one ``get_batch`` call, handed the
+    Loader's thread pool."""
+    monkeypatch.setenv("TEDM_NATIVE", "1" if route == "native" else "0")
+    calls = []
+    get_batch = CXR14Dataset.get_batch
+    monkeypatch.setattr(CXR14Dataset, "get_batch",
+                        lambda self, idx, *a: calls.append((list(idx), a)) or get_batch(self, idx, *a))
+    kw = dict(batch_size=2, shuffle=True, seed=3, shard_count=shard_count, num_workers=2)
+    for shard in range(shard_count):
+        ours = Loader(CXR14Dataset(cxr14_corpus, img_size=16, splits_dir=cxr14_corpus), shard_index=shard, **kw)
+        theirs = JaxLoader(JaxCXR14(cxr14_corpus, img_size=16, splits_dir=cxr14_corpus), shard_index=shard, **kw)
+        for _ in range(2):
+            got, want = list(ours), list(theirs)
+            assert len(got) == len(want) == (3 if shard_count == 1 else 2)
+            for a, b in zip(got, want):
+                assert sorted(a) == sorted(b) == ["image", "valid"]
+                for k in a:
+                    np.testing.assert_array_equal(a[k], b[k])
+        assert got[-1]["valid"].tolist() == ([1.0, 0.0] if shard == 0 else [0.0, 0.0])
+    real = [len(b) for b, _ in calls]
+    assert real and all(n in (1, 2) for n in real) and sum(real) == 2 * 5  # two epochs of every file
+    assert all(len(a) == 1 for _, a in calls)  # the pool's map, for the rows PIL reads
 
 
 def test_build_dataloaders_matches_jax_and_refuses_real_data(tmp_path):

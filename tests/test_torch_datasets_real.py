@@ -3,12 +3,15 @@ CPU: JSRT, CXR14, NIH and Montgomery read from PNG and GIF files written
 into a temp dir give byte-equal arrays (source images off the output size,
 masks with grey levels on both sides of the threshold, lung masks that
 overlap); ``build_dataloaders`` gives equal batches over an epoch with a
-subset of 3; the port's split CSVs are byte copies of the JAX package's;
-and ``scripts/port/export_corpus.py`` writes the files that
-``scripts/parity/export_data.py`` writes, byte for byte, at 16x16."""
+subset of 3; each reader equals JAX's with the port's native library and
+with ``TEDM_NATIVE=0``, and a CXR14 ``get_batch`` row that the native route
+refuses is read back as PIL reads it; the port's split CSVs are byte copies
+of the JAX package's; and ``scripts/port/export_corpus.py`` writes the files
+that ``scripts/parity/export_data.py`` writes, byte for byte, at 16x16."""
 
 import hashlib
 import os
+import shutil
 import sys
 
 import numpy as np
@@ -17,6 +20,7 @@ from PIL import Image
 
 from tedm_tpu.data import datasets as jds
 from tedm_tpu.data.pipeline import build_dataloaders as jax_build_dataloaders
+from tedm_tpu_torch import native
 from tedm_tpu_torch.data import datasets as ds
 from tedm_tpu_torch.data.pipeline import build_dataloaders
 
@@ -123,6 +127,55 @@ def test_readers_byte_equal_to_jax(corpus, which):
                 m = sum((ds._load_pil_image(p, SIZE) > 0.5) for p in _mask_paths(ours, i))
                 overlapped |= bool((m > 1).any())
     assert overlapped or which in ("CXR14", "NIH")
+
+
+@pytest.mark.parametrize("which", ["JSRT_train", "JSRT_val", "CXR14", "NIH", "Montgomery"])
+@pytest.mark.parametrize("route", ["native", "pil"])
+def test_readers_byte_equal_to_jax_on_each_route(corpus, which, route, monkeypatch):
+    """The port's reader with its library and with ``TEDM_NATIVE=0``
+    against JAX's reader with its library: the same bytes, and the route
+    taken is the one asked for (PNGs decoded natively, GIF masks resized
+    natively; neither where the library is off)."""
+    ours, theirs = next((o, t) for n, o, t in _readers(corpus) if n == which)
+    want = [theirs[i] for i in range(len(theirs))]
+    calls = {"load_resize_png": 0, "resize_u8": 0}
+    for fn in calls:
+        def counted(*a, _fn=getattr(native, fn), _name=fn, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(native, fn, counted)
+    monkeypatch.setenv("TEDM_NATIVE", "1" if route == "native" else "0")
+    for i, b in enumerate(want):
+        a = ours[i]
+        for x, y in zip(a if ours.has_labels else (a,), b if ours.has_labels else (b,)):
+            assert x.dtype == y.dtype == np.float32 and x.shape == (SIZE, SIZE, 1)
+            np.testing.assert_array_equal(x, y)
+    if route == "pil":
+        assert calls == {"load_resize_png": 0, "resize_u8": 0}
+    else:  # every image is a PNG; the JSRT and Montgomery lungs are GIFs
+        assert calls["load_resize_png"] >= len(ours)
+        assert (calls["resize_u8"] > 0) == (which.startswith("JSRT") or which == "Montgomery")
+
+
+def test_get_batch_row_the_native_route_refuses_equals_pil(corpus, tmp_path):
+    """A CXR14 file named .png whose content is a GIF: libpng refuses it in
+    the batch call, and ``get_batch`` reads it back as PIL does; the other
+    rows stay native, and the whole batch equals JAX's."""
+    data = tmp_path / "CXR14"
+    shutil.copytree(corpus / "CXR14", data)
+    names = [r["Image Index"] for r in ds.read_rows(str(corpus / "splits"), "train_split.csv")]
+    Image.open(data / names[2]).save(data / names[2], format="GIF")
+    reader = ds.CXR14Dataset(str(data), "train_split.csv", SIZE, splits_dir=str(corpus / "splits"))
+    _, ok = native.load_resize_png_batch([reader._path(i) for i in range(len(names))], (SIZE, SIZE))
+    assert ok.tolist() == [i != 2 for i in range(len(names))]
+    got = reader.get_batch(range(len(names)))
+    assert got.dtype == np.float32 and got.shape == (len(names), SIZE, SIZE, 1)
+    for i, name in enumerate(names):
+        with Image.open(data / name) as img:
+            pil = np.asarray(img.convert("L").resize((SIZE, SIZE)), np.uint8).astype(np.float32)[..., None] / 255.0
+        np.testing.assert_array_equal(got[i], pil, err_msg=name)
+    theirs = jds.CXR14Dataset(str(data), "train_split.csv", SIZE, splits_dir=str(corpus / "splits"))
+    np.testing.assert_array_equal(got, theirs.get_batch(list(range(len(names)))))
 
 
 def _mask_paths(reader, i):
